@@ -4,10 +4,15 @@ Mirrors ``voldor_tpu``'s module paths and function names; the JAX package
 is the reference it is tested against. This package imports torch and
 numpy, never jax and nothing from ``voldor_tpu``.
 
-Ported so far: one mono VO window end to end (``voldor``,
-``voldor_dispatch``), whose depth rounds score their proposals with the
-hand-written CUDA cost kernel in ``csrc/cost_kernel.cu``. Frame alignment
-and pose-graph optimisation are not ported yet.
+Ported so far: the SLAM layer's VO (``VOLDOR_SLAM(mode="mono" | "stereo")
+.process_vo``, from ``slam/system.py``) over the VO window entry points
+(``voldor``, ``voldor_dispatch``), whose depth rounds score their proposals
+with the hand-written CUDA cost kernel in ``csrc/cost_kernel.cu``. Frame
+alignment, pose-graph optimisation, loop closure and the mapping thread
+are not ported yet.
+
+Without a ``device`` argument the port runs on the CUDA device and raises
+when there is none; CPU callers pass ``device="cpu"``.
 
 Pose math needs true float32: TF32 is switched off for matmuls and cuDNN
 here (the JAX package sets its matmul precision to "highest" for the same
@@ -20,10 +25,11 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from voldor_tpu_torch.config import VoldorConfig  # noqa: E402
+from voldor_tpu_torch.slam.system import VOLDOR_SLAM  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["VoldorConfig", "voldor", "voldor_dispatch", "falign", "pgo", "__version__"]
+__all__ = ["VoldorConfig", "VOLDOR_SLAM", "voldor", "voldor_dispatch", "falign", "pgo", "__version__"]
 
 
 def voldor(*args, **kwargs):

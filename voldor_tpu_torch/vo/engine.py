@@ -160,8 +160,69 @@ def _to_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device=None) -> torch.device:
+    """The device a caller asked for; with None, the CUDA device, and an
+    error when there is none. The port never falls back to the CPU on its
+    own: CPU callers pass device="cpu"."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+class DeviceMap:
+    """Device-resident prior map with a deferred scale multiply
+    (``engine.py:254``): a previous window's output depth tensor plus the
+    owning frame's map scale. The multiply and the compression cast run in
+    ``_stack_maps``."""
+
+    __slots__ = ("arr", "scale")
+
+    def __init__(self, arr, scale: float = 1.0):
+        self.arr = arr
+        self.scale = float(scale)
+
+
+_TRANSFER = {"bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _stack_maps(lst, compress: str | None, device) -> torch.Tensor:
+    """Stack (h, w) prior maps that may mix host numpy, tensors and
+    DeviceMap entries into one (D, h, w) float32 tensor on ``device``
+    (``engine.py:270``). A DeviceMap is multiplied by its scale in float32
+    first; then every entry rounds through the compressed dtype ('bf16',
+    'f16' or None), so the solve sees the same priors on both routes."""
+    dt = _TRANSFER.get(compress)
+    outs = []
+    for x in lst:
+        scale = 1.0
+        if isinstance(x, DeviceMap):
+            x, scale = x.arr, x.scale
+        x = _to_tensor(x, device)
+        if scale != 1.0:
+            x = x * torch.tensor(scale, dtype=torch.float32, device=device)
+        outs.append(_round_through(x, dt) if dt is not None else x)
+    return torch.stack(outs)
+
+
+def _stack_flows(lst, compress: bool, device) -> torch.Tensor:
+    """Stack per-transition (h, w, 2) flow maps that may mix host numpy and
+    tensors (float16 or float32, as the SLAM layer's upload-ahead cache
+    hands them in) into one (N, h, w, 2) float32 tensor on ``device``
+    (``engine.py:326``). With ``compress`` every entry rounds through
+    float16."""
+    outs = []
+    for x in lst:
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x, np.float32))
+        x = x.to(device)
+        if compress:
+            x = x.to(torch.float16)
+        outs.append(x.to(torch.float32))
+    return torch.stack(outs)
 
 
 @dataclass
@@ -194,7 +255,7 @@ class VoldorEngine:
     gen: torch.Generator | None = None
 
     def __post_init__(self):
-        self.device = torch.device(self.device) if self.device is not None else default_device()
+        self.device = resolve_device(self.device)
 
     # ------------------------------------------------------------------
     def init(
@@ -202,9 +263,11 @@ class VoldorEngine:
         depth_prior_poses=None, depth_prior_pconfs=None, poses_init=None,
     ):
         """Load a window (``engine.py:706``). flows: (N, h, w, 2) array,
-        tensor or a per-transition list. Depth priors come with (D, 6)
-        poses mapping frame-0 points into each prior camera; each prior map
-        may be a numpy array or a tensor (a previous window's output)."""
+        tensor or a per-transition list. A disparity map (h, w) becomes the
+        depth prior basefocal / disparity with the identity pose. Depth
+        priors come with (D, 6) poses mapping frame-0 points into each
+        prior camera; each prior map (and confidence) may be a numpy array,
+        a tensor or a DeviceMap (a previous window's output)."""
         cfg = self.cfg
         dev = self.device
         if cfg.pose_window_sweep == "jacobi" and not cfg.silent:
@@ -212,28 +275,20 @@ class VoldorEngine:
                 "--pose_window_sweep jacobi is an ablation/testing mode; use 'hybrid' or 'seq'.",
                 stacklevel=3,
             )
-        if disparity is not None:
-            raise NotImplementedError(
-                "the stereo disparity prior is not ported yet (ROADMAP queue A: stereo "
-                "and mono-scaled modes)"
-            )
         if cfg.resize_factor != 1.0:
             raise NotImplementedError("resize_factor != 1 is not ported (resize is the SLAM layer's duty)")
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(cfg.seed))
 
-        if isinstance(flows, (list, tuple)):
-            flows = torch.stack([_to_tensor(f, dev) for f in flows])
-        else:
-            flows = _to_tensor(flows, dev)
         compress = cfg.transfer_dtype == "float16"
-        self.flows = (_round_through(flows, torch.float16) if compress else flows).contiguous()
+        # an array, or per-transition entries mixing host numpy and tensors
+        # (the SLAM layer's upload-ahead cache)
+        self.flows = _stack_flows(list(flows), compress, dev)
         N, h, w = self.flows.shape[:3]
         self.n_flows = self.n_flows_init = N
         self.h, self.w = h, w
         self.iters_cur = 0
         self.iters_remain = cfg.max_iters
-        self.has_disparity = False
 
         self.rigidness = torch.ones((N, h, w), dtype=torch.float32, device=dev)
         self.poses6 = torch.zeros((N, 6), dtype=torch.float32, device=dev)
@@ -245,20 +300,35 @@ class VoldorEngine:
         self.pose_sample_counts_dev = torch.zeros(N, dtype=torch.int32, device=dev)
         self.pose_rigidness_densities = np.zeros(N, np.float32)
 
-        D = 0 if depth_priors is None else len(depth_priors)
+        # slot 0 is the disparity prior (engine.py:770-785): depth bf/disp
+        # seen from frame 0 itself
+        prior_list, pconf_list, pose_list = [], [], []
+        self.has_disparity = disparity is not None
+        if disparity is not None:
+            prior_list.append(cfg.basefocal / np.maximum(np.asarray(disparity, np.float32), 1e-12))
+            pconf_list.append(
+                np.ones((h, w), np.float32) if disparity_pconf is None
+                else disparity_pconf
+            )
+            pose_list.append(np.zeros(6, np.float32))
+        for i in range(0 if depth_priors is None else len(depth_priors)):
+            prior_list.append(depth_priors[i])
+            pconf_list.append(
+                np.ones((h, w), np.float32) if depth_prior_pconfs is None
+                else depth_prior_pconfs[i]
+            )
+            pose_list.append(np.asarray(depth_prior_poses[i], np.float32))
+
+        D = len(prior_list)
         self.n_depth_priors = D
         if D > 0:
-            priors = torch.stack([_to_tensor(depth_priors[i], dev) for i in range(D)])
-            if depth_prior_pconfs is None:
-                pconfs = torch.ones((D, h, w), dtype=torch.float32, device=dev)
-            else:
-                pconfs = torch.stack([_to_tensor(depth_prior_pconfs[i], dev) for i in range(D)])
-            self.priors = _round_through(priors, torch.bfloat16) if compress else priors
-            self.dp_pconfs = _round_through(pconfs, torch.float16) if compress else pconfs
+            self.priors = _stack_maps(prior_list, "bf16" if compress else None, dev)
+            self.dp_pconfs = _stack_maps(pconf_list, "f16" if compress else None, dev)
             self.dp_confs = torch.ones((D, h, w), dtype=torch.float32, device=dev)
-            self.dp_poses6 = _to_tensor(np.stack([np.asarray(p, np.float32) for p in depth_prior_poses]), dev)
+            self.dp_poses6 = torch.as_tensor(np.stack(pose_list), device=dev)
             self.depth = self.priors[0].clone()
-            self._run_prior_only_round()  # fuse priors into the initial depth
+            if not self.has_disparity:
+                self._run_prior_only_round()  # fuse priors into the initial depth
         else:
             self.priors = torch.zeros((0, h, w), dtype=torch.float32, device=dev)
             self.dp_pconfs = torch.zeros((0, h, w), dtype=torch.float32, device=dev)
