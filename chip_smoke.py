@@ -7,29 +7,50 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: a CUDA device must be present (never falls back to the CPU);
    prints the card's name and power limit from nvidia-smi;
-2. build: compiles the hand-written cost kernel (voldor_tpu_torch/csrc)
-   with nvcc into voldor_tpu_torch/_build/;
-3. kernel vs plain: the kernel against its plain PyTorch version on the
-   card at the main path's shapes (185x613, N=5, K in {1,4,10}, D in
+2. build: compiles every hand-written kernel source
+   (voldor_tpu_torch/csrc/*.cu, one nvcc each, in parallel) into one
+   library in voldor_tpu_torch/_build/, and, beside it, the earlier raw-sum
+   design of the cost kernel (tools/cost_kernel_raw_sums.cu) as a timing
+   yardstick; prints ptxas's registers and the SASS instruction count of
+   every kernel;
+3. fb_smooth vs plain: the kernel against fb_smooth_reference on the card
+   at (M, 185, 613), M in {5, 3, 2, 1}, on the bench scene's rigidness
+   maps: max abs error within 1e-5;
+4. cost kernel, score mode vs plain: the normalised costs against the plain
+   composition at the main path's shapes (185x613, N=5, K in {1,4,10}, D in
    {0,1,2,3} -- D=3 with the stereo disparity slot --, active_n in {5,3}):
    identical +inf pattern, finite values within rtol = atol = 1e-5;
-4. the VO windows: three consecutive 5-flow mono VO windows of the bench
+5. cost kernel, accept mode vs plain: a random (K=10), a global (K=4) and a
+   jump (K=4) proposal batch at N=5, D=2: the accepted depth equals the
+   plain composition's at >= 99.9% of pixels, and at every other pixel the
+   two picks' plain costs agree within 1e-5 relative (a near-tie);
+6. device-only times (CUDA events around 100 back-to-back launches of the
+   bound C call, no wrapper in between) of the fb_smooth kernel, the cost
+   kernel in accept and score mode and the raw-sum yardstick at K = 1, 4,
+   10, beside their plain versions and their bounds (bytes over 3.35 TB/s,
+   operations over the FP32 issue rate; the cost kernel's operations are
+   estimated from its SASS and the Fisk terms this run's data evaluates);
+7. the VO windows: three consecutive 5-flow mono VO windows of the bench
    scene (613x185, seed 7) through voldor_tpu_torch's VO entry point on the
    card, with 0, 1 and 2 depth priors and the SLAM layer's constant-velocity
    warm start; each window must register 5 transitions, every engine
    tensor must lie on the card, the cost kernel must have been launched at
-   least 8 times per flow-fed EM iteration, and the 16-frame trajectory
-   must pass the bench's gate, Sim3 ATE < 0.02 * scene extent;
-5. times: the median warm wall time of each window, the kernel and its
-   plain version at K=10, N=5, D=2 (CUDA events), fb_smooth's share of a
+   least 8 times per flow-fed EM iteration and the fb_smooth kernel at
+   least once, and the 16-frame trajectory must pass the bench's gate,
+   Sim3 ATE < 0.02 * scene extent;
+8. no host sync: the same three windows with every call of the kernel
+   wrappers (fb_smooth, cost score, cost accept) run under
+   torch.cuda.set_sync_debug_mode("error");
+9. times: the median warm wall time of each window, fb_smooth's share of a
    window;
-6. slam-mono: VOLDOR_SLAM(mode="mono", device="cuda").process_vo over the
+10. slam-mono: VOLDOR_SLAM(mode="mono", device="cuda").process_vo over the
    bench's 24-flow scene (25 frames), configured as the bench configures
    it; one checked pass (every window's device covisibility scores equal
-   the host gate slam_utils.eval_covisibility within 1e-5, every engine
-   tensor and live frame map on the card, >= 8 kernel launches per EM
-   iteration, Sim3 ATE < 0.02 * extent), then 3 timed passes;
-7. slam-stereo: the same scene with disparity bf / depth (bf = 175) in
+   the same functions run on CPU copies of their inputs within 1e-5, every
+   engine tensor and live frame map on the card, >= 8 cost-kernel launches
+   per EM iteration and fb_smooth launches, Sim3 ATE < 0.02 * extent),
+   then 3 timed passes;
+11. slam-stereo: the same scene with disparity bf / depth (bf = 175) in
    mode="stereo"; one checked pass under the metric ATE gate (no scale
    alignment, < 0.02 * extent), then 1 timed pass.
 
@@ -39,7 +60,9 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -61,6 +84,11 @@ RTOL = ATOL = 1e-5
 SLAM_FLOWS = 24  # the bench's sequence length (bench.py:435)
 BF_STEREO = 0.5 * FX  # bench.py:148
 COVIS_TOL = 1e-5
+FB_EMM, FB_NCP = 0.5, 0.9  # the shipped fb_emm / fb_no_change_prob
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_INSTR_PER_S = 67e12 / 2  # FP32 issue rate: 67 TFLOP/s counts an FMA as 2
+N_LAUNCH = 100  # back-to-back launches per device-only timing
+YARDSTICK = ROOT / "tools" / "cost_kernel_raw_sums.cu"
 
 
 def log(*a):
@@ -111,12 +139,82 @@ def build_scene(np, torch, n_flows):
     return K, planes, poses, flows, depth0, Ts, r2R
 
 
-def phase_kernel(np, torch, scene):
-    """Kernel against its plain version at the main path's shapes."""
+class _RawSumsParams(ctypes.Structure):
+    """The yardstick kernel's by-value parameters (tools/cost_kernel_raw_sums.cu)."""
+
+    _fields_ = [
+        ("poses", (ctypes.c_float * 12) * 8),
+        ("pposes", (ctypes.c_float * 12) * 4),
+        ("fx", ctypes.c_float), ("fy", ctypes.c_float),
+        ("cx", ctypes.c_float), ("cy", ctypes.c_float),
+        ("lam", ctypes.c_float), ("arf", ctypes.c_float),
+        ("bf", ctypes.c_float), ("omega", ctypes.c_float),
+        ("n_frames", ctypes.c_int), ("active_n", ctypes.c_int),
+        ("n_priors", ctypes.c_int), ("k", ctypes.c_int),
+        ("h", ctypes.c_int), ("w", ctypes.c_int),
+    ]
+
+
+def phase_build():
+    """The package's kernels (one nvcc per source, in parallel) and the
+    yardstick, started together. Returns the yardstick's C function."""
+    from voldor_tpu_torch.ops import _build
+
+    so = _build.BUILD_DIR / "libcost_kernel_raw_sums.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    yard = subprocess.Popen(
+        [_build.nvcc(), *(f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")),
+         "-shared", "-o", str(so), str(YARDSTICK)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    _build.build()
+    out, _ = yard.communicate()
+    if yard.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {YARDSTICK.name}:\n{out}")
+    log(f"[build] {len(_build.sources())} sources -> {_build.library_path().name}: nvcc "
+        f"{' '.join(_build.NVCC_FLAGS)}; {_build.build_seconds or 0.0:.2f} s build "
+        f"(wall {time.perf_counter() - t0:.2f} s with the yardstick)")
+    report = _build.ptxas_report()
+    for fn, spill, regs in re.findall(
+            r"Function properties for (\S+)\n.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+            report, re.S):
+        log(f"[build] ptxas {short_name(fn)}: {regs} registers, {spill} bytes spilled")
+    fn = ctypes.CDLL(str(so)).cost_map_tracked_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.POINTER(_RawSumsParams), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def short_name(mangled):
+    m = re.search(r"cost_kernelILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"cost_kernel<KT={m.group(1)}, {'accept' if m.group(2) == '1' else 'score'}>"
+    m = re.search(r"(fb_rows_kernel|fb_cols_kernel)", mangled)
+    return m.group(1) if m else mangled
+
+
+def sass_counts():
+    """Static SASS instruction count of every kernel in the library."""
+    from voldor_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+                          check=True, capture_output=True, text=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", sass)
+    counts = {short_name(name): len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+[A-Z@]", body))
+              for name, body in zip(parts[1::2], parts[2::2])}
+    for name, n in counts.items():
+        log(f"[build] SASS {name}: {n} instructions")
+    return counts
+
+
+def bench_inputs(np, torch, scene):
+    """The main path's operands at full size on the bench scene: the
+    window's rigidness and tracks, three priors with their poses."""
     from synthetic import plane_depth
 
     from voldor_tpu_torch.config import VoldorConfig
-    from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops.lie import T44_to_pose6, so3_exp
     from voldor_tpu_torch.vo import em
 
@@ -134,7 +232,6 @@ def phase_kernel(np, torch, scene):
     u = torch.rand((10, H, W), generator=gen, device=dev)
     jitter = 1.0 + 0.3 * (torch.rand((10, H, W), generator=gen, device=dev) - 0.5)
     cands_all = torch.cat([d0[None], d0[None] * jitter[:5], 1.0 / (u[:4] + 1e-5)]).contiguous()
-
     # priors: the frame-0 depth (identity pose: the stereo disparity slot
     # when D = 3), the frame-1 depth (pose 0 maps frame-0 points into
     # frame 1) and the frame-2 depth
@@ -143,27 +240,64 @@ def phase_kernel(np, torch, scene):
     priors = torch.as_tensor(np.stack([depth0 * 1.01, depth1, depth2]), device=dev)
     dp_poses = np.stack([np.zeros(6, np.float32), poses[0],
                          T44_to_pose6(torch.as_tensor(Ts[2], dtype=torch.float32)).numpy()])
-    dp_Rs = so3_exp(torch.as_tensor(dp_poses[:, :3], device=dev))
-    dp_ts = torch.as_tensor(dp_poses[:, 3:6], device=dev)
-    pconfs = torch.full((3, H, W), 0.9, device=dev)
-    confs = torch.rand((3, H, W), generator=gen, device=dev)
-    p_stereo = p._replace(disp_delta=1.0)  # slot 0 weighs as the disparity prior
+    return dict(
+        p=p, fl=fl, Rs=Rs, ts=ts, d0=d0, gen=gen, cands_all=cands_all, priors=priors,
+        dp_Rs=so3_exp(torch.as_tensor(dp_poses[:, :3], device=dev)),
+        dp_ts=torch.as_tensor(dp_poses[:, 3:6], device=dev),
+        pconfs=torch.full((3, H, W), 0.9, device=dev),
+        confs=torch.rand((3, H, W), generator=gen, device=dev),
+    )
 
+
+def planes_at(bi, active_n, D, stereo=False):
+    """(rig, track, tinb), prior samples of D priors, at active_n frames."""
+    from voldor_tpu_torch.vo import em
+
+    p = bi["p"]
+    rig = em.update_rigidness(bi["d0"], bi["fl"], bi["Rs"], bi["ts"], active_n, p).contiguous()
+    track, tinb = em.precompute_obs_tracks(bi["fl"], active_n, p)
+    ps = None
+    if D:
+        ps = em.precompute_prior_samples(
+            bi["d0"], bi["priors"][:D], bi["pconfs"][:D], bi["confs"][:D], bi["dp_Rs"][:D],
+            bi["dp_ts"][:D], p._replace(disp_delta=1.0) if stereo else p,
+        )
+    return rig, track, tinb, ps
+
+
+def phase_fb(np, torch, bi):
+    """fb_smooth kernel against its plain version on the bench's rigidness."""
+    from voldor_tpu_torch.ops import fb_smooth as fb
+
+    rig, _, _, _ = planes_at(bi, WINDOW, 0)
+    max_err = 0.0
+    for m in (5, 3, 2, 1):
+        x = rig[:m].contiguous()
+        got = fb.fb_smooth(x, FB_EMM, FB_NCP)
+        ref = fb.fb_smooth_reference(x, FB_EMM, FB_NCP)
+        torch.cuda.synchronize()
+        err = float(torch.abs(got - ref).max())
+        max_err = max(max_err, err)
+        log(f"[fb_smooth] M={m} {H}x{W}: max_abs_err {err:.3e}, bitwise equal "
+            f"{bool(torch.equal(got, ref))}")
+        if not err <= ATOL:
+            raise AssertionError(f"fb_smooth kernel disagrees with its plain version (M={m})")
+    return max_err
+
+
+def phase_score(np, torch, bi):
+    """Cost kernel in score mode against the plain composition."""
+    from voldor_tpu_torch.ops import cost as cost_mod
+
+    p, Rs, ts, cands_all = bi["p"], bi["Rs"], bi["ts"], bi["cands_all"]
     max_err = 0.0
     for active_n in (5, 3):
-        rig = em.update_rigidness(d0, fl, Rs, ts, active_n, p).contiguous()
-        track, tinb = em.precompute_obs_tracks(fl, active_n, p)
         for D in (0, 1, 2, 3):
-            ps = None
-            if D:
-                ps = em.precompute_prior_samples(
-                    d0, priors[:D], pconfs[:D], confs[:D], dp_Rs[:D], dp_ts[:D],
-                    p_stereo if D == 3 else p,
-                )
+            rig, track, tinb, ps = planes_at(bi, active_n, D, stereo=D == 3)
             for k in (1, 4, 10):
                 cands = cands_all[:k].contiguous()
                 args = (cands, track, tinb, rig, Rs, ts, active_n, p)
-                got = cost_mod.normalize_cost(*cost_mod.cost_map_tracked(*args, prior_samples=ps))
+                got = cost_mod.cost_map_score(*args, prior_samples=ps)
                 ref = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(*args, prior_samples=ps))
                 torch.cuda.synchronize()
                 fin = torch.isfinite(ref)
@@ -173,38 +307,263 @@ def phase_kernel(np, torch, scene):
                 bad = (torch.abs(g - r) > ATOL + RTOL * torch.abs(r)).sum().item()
                 err = float(torch.abs(g - r).max()) if g.numel() else 0.0
                 max_err = max(max_err, err)
-                log(f"[kernel] K={k} D={D} active_n={active_n}: finite {int(fin.sum())}/{fin.numel()} "
+                log(f"[score] K={k} D={D} active_n={active_n}: finite {int(fin.sum())}/{fin.numel()} "
                     f"max_abs_err {err:.3e} out-of-tol {bad}")
                 if bad:
                     raise AssertionError(f"kernel disagrees with its plain version (K={k}, D={D}, active_n={active_n})")
+    return max_err
 
-    # timing at K=10, N=5, D=2 (CUDA events, median of 20)
-    rig = em.update_rigidness(d0, fl, Rs, ts, WINDOW, p).contiguous()
-    track, tinb = em.precompute_obs_tracks(fl, WINDOW, p)
-    ps = em.precompute_prior_samples(d0, priors[:2], pconfs[:2], confs[:2], dp_Rs[:2], dp_ts[:2], p)
-    args = (cands_all, track, tinb, rig, Rs, ts, WINDOW, p)
 
-    def time_ms(fn):
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(20):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
+def accept_batches(torch, bi, depth):
+    """The three proposal families of a depth round at full size:
+    (name, cands, masks) for random (K=10), global (K=4), jump (K=4, o=1)."""
+    from voldor_tpu_torch.vo import em
 
-    plain1 = time_ms(lambda: cost_mod.cost_map_tracked_reference(*args, prior_samples=ps))
-    kern1 = time_ms(lambda: cost_mod.cost_map_tracked(*args, prior_samples=ps))
-    kern2 = time_ms(lambda: cost_mod.cost_map_tracked(*args, prior_samples=ps))
-    plain2 = time_ms(lambda: cost_mod.cost_map_tracked_reference(*args, prior_samples=ps))
-    kern_ms, plain_ms = min(kern1, kern2), min(plain1, plain2)
-    log(f"[kernel] K=10 N=5 D=2 median of 20: kernel {kern1:.4f} / {kern2:.4f} ms, "
-        f"plain {plain1:.4f} / {plain2:.4f} ms (order plain, kernel, kernel, plain)")
-    return max_err, kern_ms, plain_ms
+    u = torch.rand((10, H, W), generator=bi["gen"], device=depth.device)
+    rand = (1.0 / (u + 1.0 / em.MAXIMUM_DEPTH)).contiguous()
+    gc, gm = [], []
+    for dy, dx, along_x, start_hi in em._GLOBAL_DIRS:
+        cand, valid = em._shift_depth(depth, dy, dx)
+        gc.append(cand)
+        gm.append(valid & em._global_mask(H, W, along_x, start_hi, 8, depth.device))
+    jc, jm = [], []
+    for sy, sx in em._LOCAL_DIRS:
+        cand, valid = em._shift_depth(depth, sy, sx)
+        jc.append(cand)
+        jm.append(valid)
+    return [("random", rand, None), ("global", torch.stack(gc), torch.stack(gm)),
+            ("jump", torch.stack(jc), torch.stack(jm))]
+
+
+def phase_accept(np, torch, bi):
+    """Cost kernel in accept mode against the plain composition, N=5, D=2."""
+    from voldor_tpu_torch.ops import cost as cost_mod
+
+    p, Rs, ts = bi["p"], bi["Rs"], bi["ts"]
+    rig, track, tinb, ps = planes_at(bi, WINDOW, 2)
+    planes = (track, tinb, rig, Rs, ts, WINDOW, p)
+    jit = 1.0 + 0.1 * (torch.rand((H, W), generator=bi["gen"], device="cuda") - 0.5)
+    depth = (bi["d0"] * jit).contiguous()
+    cost = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(
+        depth[None], *planes, prior_samples=ps))[0]
+    worst = 1.0
+    for name, cands, masks in accept_batches(torch, bi, depth):
+        costs = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(
+            cands, *planes, prior_samples=ps))
+        d_ref, c_ref = cost_mod.accept_reference(depth, cost, costs, cands, masks)
+        d_k, c_k = cost_mod.cost_map_accept(depth.clone(), cost.clone(), cands, masks, *planes,
+                                            prior_samples=ps)
+        torch.cuda.synchronize()
+        same = d_k == d_ref
+        frac = float(same.float().mean())
+        worst = min(worst, frac)
+        # the plain cost of the kernel's pick: the candidate it took, or the
+        # pixel's own cost where it kept the pixel
+        kept = masks if masks is not None else torch.ones_like(cands, dtype=torch.bool)
+        hit = (cands == d_k[None]) & kept
+        k_pick = torch.argmax(hit.to(torch.uint8), dim=0)
+        took = hit.any(dim=0) & ((d_k != depth) | (c_k != cost))
+        pick_cost = torch.where(took, torch.gather(costs, 0, k_pick[None])[0], cost)
+        diff = ~same
+        a, b = pick_cost[diff], c_ref[diff]
+        near = torch.abs(a - b) <= 1e-5 * torch.maximum(torch.abs(a), torch.abs(b)) + 1e-7
+        rel = float((torch.abs(a - b) / torch.clamp_min(torch.abs(b), 1e-30)).max()) if a.numel() else 0.0
+        log(f"[accept] {name} K={cands.shape[0]}: same depth at {frac:.6f} of pixels "
+            f"({int(diff.sum())} differ, accepted {int((d_ref != depth).sum())} plain / "
+            f"{int((d_k != depth).sum())} kernel), largest relative cost gap at a "
+            f"difference {rel:.3e}")
+        if frac < 0.999 or not bool(near.all()):
+            raise AssertionError(f"accept mode disagrees with the plain composition ({name})")
+    return worst
+
+
+def count_terms(torch, cands, tinb, Rs, ts, active_n, p, ps):
+    """Fisk terms the kernel evaluates on these inputs: (flow, prior)."""
+    from voldor_tpu_torch.ops import fisk
+
+    ys, xs = torch.meshgrid(torch.arange(H, device=cands.device),
+                            torch.arange(W, device=cands.device), indexing="ij")
+    bx = fisk.div_scalar(xs.float() - p.cx, p.fx)
+    by = fisk.div_scalar(ys.float() - p.cy, p.fy)
+    ox, oy, oz = bx * cands, by * cands, cands
+    flow = 0
+    for f in range(active_n):
+        R, t = Rs[f], ts[f]
+        ox, oy, oz = (R[0, 0] * ox + R[0, 1] * oy + R[0, 2] * oz + t[0],
+                      R[1, 0] * ox + R[1, 1] * oy + R[1, 2] * oz + t[1],
+                      R[2, 0] * ox + R[2, 1] * oy + R[2, 2] * oz + t[2])
+        flow += int((tinb[f] & (oz > 0)).sum())
+    prior = 0
+    if ps is not None:
+        tgt, wgt, dRs, dts = ps
+        for d in range(tgt.shape[0]):
+            nz = dRs[d, 2, 0] * (bx * cands) + dRs[d, 2, 1] * (by * cands) + dRs[d, 2, 2] * cands + dts[d, 2]
+            prior += int(((tgt[d] > 0) & (wgt[d] > 0) & (nz > 0)).sum())
+    return flow, prior
+
+
+def device_ms(torch, launch, n=N_LAUNCH):
+    """Mean device time of one launch over n back-to-back launches."""
+    for _ in range(3):
+        launch()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        launch()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def event_ms(torch, fn, reps):
+    """Median time of fn over reps calls, CUDA events around each."""
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def checked(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def phase_times(np, torch, bi, yard_fn, sass):
+    """Device-only times of both kernels and the yardstick, their plain
+    versions' times and their bounds. Returns the kernels' records."""
+    from voldor_tpu_torch.ops import _build
+    from voldor_tpu_torch.ops import cost as cost_mod
+    from voldor_tpu_torch.ops import fb_smooth as fb
+
+    stream = torch.cuda.current_stream().cuda_stream
+    p, Rs, ts = bi["p"], bi["Rs"], bi["ts"]
+    rig, track, tinb, ps = planes_at(bi, WINDOW, 2)
+    planes = (track, tinb, rig, Rs, ts, WINDOW, p)
+    px = H * W
+
+    # fb_smooth at M = 5 (the rigidness stack) and M = 2 (dp_confs)
+    fb_fn = _build.function("fb_smooth_launch", fb._ARGTYPES)
+    fb_rec = {}
+    for m in (5, 2):
+        x = rig[:m].contiguous()
+        mid, out = torch.empty_like(x), torch.empty_like(x)
+        args = (x.data_ptr(), mid.data_ptr(), out.data_ptr(), m, H, W,
+                *fb._constants(FB_EMM, FB_NCP), stream)
+        fb_rec[m] = device_ms(torch, lambda: checked(fb_fn(*args), "fb_smooth"))
+    x5 = rig.contiguous()
+    plain1 = event_ms(torch, lambda: fb.fb_smooth_reference(x5, FB_EMM, FB_NCP), 3)
+    kern = device_ms(torch, lambda: fb.fb_smooth(x5, FB_EMM, FB_NCP))
+    plain2 = event_ms(torch, lambda: fb.fb_smooth_reference(x5, FB_EMM, FB_NCP), 3)
+    fb_bytes = 2 * 4 * WINDOW * px
+    fb_ops = 60 * WINDOW * px  # per element: 2 passes x (fwd 11 + bwd 12 + posterior 7)
+    fb_bound = max(fb_bytes / HBM_BYTES_PER_S, fb_ops / FP32_INSTR_PER_S) * 1e3
+    chain = 2 * (W + H)
+    log(f"[times] fb_smooth M=5 {H}x{W}: device {fb_rec[5]:.4f} ms per call ({N_LAUNCH} "
+        f"launches; M=2 {fb_rec[2]:.4f} ms; through the wrapper {kern:.4f} ms), plain "
+        f"{plain1:.4f} / {plain2:.4f} ms (order plain, kernel, plain); bound {fb_bound * 1e3:.3f} us "
+        f"by bytes ({fb_bytes} B; {fb_ops} operations), but the serial chain is {chain} "
+        f"dependent steps per (row, column) pair")
+
+    # the cost kernel: accept and score mode, and the raw-sum yardstick
+    slope = (sass["cost_kernel<KT=10, accept>"] - sass["cost_kernel<KT=4, accept>"]) / 6
+    per_term = slope / 2  # one flow and one prior term per candidate in the unrolled body
+    D = ps[0].shape[0]
+    cost_rec = {}
+    for k in (1, 4, 10):
+        cands = bi["cands_all"][:k].contiguous()
+        depth = bi["d0"].clone()
+        cost = cost_mod.cost_map_score(depth[None], *planes, prior_samples=ps)[0].clone()
+        out = torch.empty_like(cands)
+        acc_fn, acc_args, _k1 = cost_mod._bind(cost_mod._ACCEPT, cands, *planes, ps,
+                                              depth=depth, cost=cost)
+        sc_fn, sc_args, _k2 = cost_mod._bind(cost_mod._SCORE, cands, *planes, ps, out=out)
+        yard = yardstick_call(torch, yard_fn, cands, planes, ps, stream)
+        runs = {"yardstick": [], "score": [], "accept": []}
+        for order in (("yardstick", "score", "accept"), ("accept", "score", "yardstick")):
+            for name in order:
+                if name == "yardstick":
+                    runs[name].append(device_ms(torch, lambda: checked(yard(), "yardstick")))
+                elif name == "score":
+                    runs[name].append(device_ms(torch, lambda: checked(sc_fn(*sc_args), "score")))
+                else:
+                    runs[name].append(device_ms(torch, lambda: checked(acc_fn(*acc_args), "accept")))
+        flow, prior = count_terms(torch, cands, tinb, Rs, ts, WINDOW, p, ps)
+        ops = (flow + prior) * per_term
+        in_bytes = px * (4 * k + WINDOW * (5 * 4 + 1) + D * 8)
+        bounds = {
+            "accept": max((in_bytes + px * 16) / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S) * 1e3,
+            "score": max((in_bytes + px * 4 * k) / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S) * 1e3,
+            "yardstick": max((in_bytes + px * 8 * k) / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S) * 1e3,
+        }
+        by_bytes = {n: (in_bytes + px * o) / HBM_BYTES_PER_S * 1e3
+                    for n, o in (("accept", 16), ("score", 4 * k), ("yardstick", 8 * k))}
+        cost_rec[k] = {n: min(v) for n, v in runs.items()}
+        log(f"[times] cost K={k} N={WINDOW} D={D}: device ms per launch (min of two rounds of "
+            f"{N_LAUNCH}) accept {runs['accept']}, score {runs['score']}, raw-sum yardstick "
+            f"{runs['yardstick']}; Fisk terms evaluated {flow} flow + {prior} prior, "
+            f"~{per_term:.0f} SASS instructions each -> {ops:.4g} instructions, "
+            f"{ops / FP32_INSTR_PER_S * 1e6:.2f} us at the FP32 issue rate; bytes bound "
+            f"accept {by_bytes['accept'] * 1e3:.2f} us, score {by_bytes['score'] * 1e3:.2f} us, "
+            f"yardstick {by_bytes['yardstick'] * 1e3:.2f} us; bound (larger) accept "
+            f"{bounds['accept'] * 1e3:.2f} us")
+        cost_rec[k]["bound"] = bounds
+        cost_rec[k]["bound_by"] = "operations" if ops / FP32_INSTR_PER_S * 1e3 > by_bytes["accept"] else "bytes"
+
+    # the plain composition the kernel's accept replaces, at K = 10
+    cands = bi["cands_all"]
+    depth = bi["d0"].clone()
+    cost = cost_mod.cost_map_score(depth[None], *planes, prior_samples=ps)[0].clone()
+
+    def plain_accept():
+        costs = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(cands, *planes, prior_samples=ps))
+        return cost_mod.accept_reference(depth, cost, costs, cands, None)
+
+    pa1 = event_ms(torch, plain_accept, 10)
+    wrap = device_ms(torch, lambda: cost_mod.cost_map_accept(depth, cost, cands, None, *planes, prior_samples=ps))
+    pa2 = event_ms(torch, plain_accept, 10)
+    log(f"[times] cost accept K=10: plain composition {pa1:.4f} / {pa2:.4f} ms, kernel through "
+        f"the wrapper {wrap:.4f} ms per call ({N_LAUNCH} calls; order plain, kernel, plain)")
+    fb_record = dict(ms=fb_rec[5], plain_ms=min(plain1, plain2), bound_ms=fb_bound, bound_by="bytes",
+                     ms_m2=fb_rec[2], serial_steps=chain)
+    c10 = cost_rec[10]
+    cost_record = dict(ms=c10["accept"], plain_ms=min(pa1, pa2), bound_ms=c10["bound"]["accept"],
+                       bound_by=c10["bound_by"], score_ms=c10["score"], yardstick_ms=c10["yardstick"],
+                       ms_by_k={k: {n: v for n, v in r.items() if n in ("accept", "score", "yardstick")}
+                                for k, r in cost_rec.items()})
+    return fb_record, cost_record
+
+
+def yardstick_call(torch, fn, cands, planes, ps, stream):
+    """The raw-sum yardstick bound to the same operands, poses by value."""
+    track, tinb, rig, Rs, ts, active_n, p = planes
+    K = cands.shape[0]
+    N = Rs.shape[0]
+    prm = _RawSumsParams()
+    rows = torch.cat([Rs.reshape(N, 9), ts.reshape(N, 3)], -1).cpu()
+    for f in range(N):
+        prm.poses[f][:] = rows[f].tolist()
+    tgt, wgt, dRs, dts = ps
+    D = tgt.shape[0]
+    prow = torch.cat([dRs.reshape(D, 9), dts.reshape(D, 3)], -1).cpu()
+    for d in range(D):
+        prm.pposes[d][:] = prow[d].tolist()
+    prm.fx, prm.fy, prm.cx, prm.cy = p.fx, p.fy, p.cx, p.cy
+    prm.lam, prm.arf, prm.bf, prm.omega = p.lam, p.abs_resize_factor, p.basefocal, p.omega
+    prm.n_frames, prm.active_n, prm.n_priors, prm.k, prm.h, prm.w = N, active_n, D, K, H, W
+    cs, ws = torch.empty_like(cands), torch.empty_like(cands)
+    keep = (cs, ws, prm)
+    args = (cands.data_ptr(), *(t.data_ptr() for t in track), rig.data_ptr(), tinb.data_ptr(), tgt.data_ptr(), wgt.data_ptr(), cs.data_ptr(),
+            ws.data_ptr(), ctypes.byref(prm), stream)
+
+    def call(keep=keep):
+        return fn(*args)
+
+    return call
 
 
 def run_sequence(np, torch, scene, check=False):
@@ -289,32 +648,57 @@ def make_slam(mode, flows, disps=None):
     return slam
 
 
-def check_window_covis(np, slam, handle, inputs):
-    """A window's device covis / spakf_covis scores against the host gate
-    (slam_utils.eval_covisibility) on the same maps and chained poses."""
-    from voldor_tpu_torch.slam.slam_utils import T6_to_T44, eval_covisibility
+def check_window_covis(np, torch, handle, inputs):
+    """A window's device covis / spakf_covis scores against the same
+    functions (ops/covis.py) run on CPU copies of their inputs."""
+    from voldor_tpu_torch.ops.covis import covis_keyframe, covis_window
+    from voldor_tpu_torch.vo.engine import _to_tensor
 
     res = handle.collect()
-    thresh = inputs["covis_spec"]["conf_thresh"]
-    depth, conf = handle.depth_host(), handle.conf_host()
+    eng, cfg, cpu = handle.engine, handle.cfg, torch.device("cpu")
+    K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1]], dtype=torch.float32)
+    thresh = float(np.float32(inputs["covis_spec"]["conf_thresh"]))
+    n_flows = eng._st_scalars[0]
+    pairs = [("covis", covis_window(eng.depth.cpu(), handle.conf_dev.cpu(), eng.poses6.cpu(),
+                                    n_flows, K, thresh, n_cap=handle.n_true))]
     spa = inputs["covis_spec"].get("spakf")
     if spa is not None:
-        sdep = spa[0].cpu().numpy() * np.float32(spa[2])
-        sconf = spa[1].cpu().numpy()
-        M = np.asarray(spa[3], np.float32).astype(np.float64)
-    T = np.eye(4)
+        sdep, sconf, sscale, M = spa
+        pairs.append(("spakf_covis", covis_keyframe(
+            _to_tensor(sdep, cpu), _to_tensor(sconf, cpu), float(np.float32(sscale)),
+            eng.poses6.cpu(), n_flows, _to_tensor(M, cpu), K, thresh, n_cap=handle.n_true)))
     err = 0.0
-    for i, p6 in enumerate(handle.engine.poses6[:res["n_registered"]].cpu().numpy()):
-        T = T6_to_T44(p6).astype(np.float64) @ T
-        pairs = [(res["covis"][i], eval_covisibility(depth, T, slam.K, conf > thresh))]
-        if spa is not None:
-            pairs.append((res["spakf_covis"][i], eval_covisibility(sdep, T @ M, slam.K, sconf > thresh)))
-        for dev_v, host_v in pairs:
-            err = max(err, abs(float(dev_v) - host_v))
-            if not abs(float(dev_v) - host_v) <= COVIS_TOL:
-                raise AssertionError(f"window at fid {inputs['fid']}, step {i + 1}: device covis "
-                                     f"{float(dev_v):.7f} vs host {host_v:.7f}")
+    for name, ref in pairs:
+        e = float(np.abs(res[name] - ref.numpy()).max())
+        err = max(err, e)
+        if not e <= COVIS_TOL:
+            raise AssertionError(f"window at fid {inputs['fid']}: device {name} {res[name]} vs "
+                                 f"the CPU run {ref.numpy()}")
     return err
+
+
+def reset_counts():
+    from voldor_tpu_torch.ops import cost as cost_mod
+    from voldor_tpu_torch.ops import fb_smooth as fb
+
+    cost_mod.cost_kernel_launches = cost_mod.cost_score_launches = 0
+    fb.fb_smooth_kernel_launches = 0
+
+
+def read_counts():
+    from voldor_tpu_torch.ops import cost as cost_mod
+    from voldor_tpu_torch.ops import fb_smooth as fb
+
+    return dict(cost=cost_mod.cost_kernel_launches, score=cost_mod.cost_score_launches,
+                fb=fb.fb_smooth_kernel_launches)
+
+
+def check_counts(what, counts, em_iters):
+    if counts["cost"] < 8 * em_iters:
+        raise AssertionError(f"{what}: cost kernel launched {counts['cost']} times, "
+                             f"expected >= {8 * em_iters}")
+    if counts["fb"] < 1:
+        raise AssertionError(f"{what}: the fb_smooth kernel was never launched")
 
 
 def run_slam_pass(np, torch, mode, flows, disps=None, check=False):
@@ -364,33 +748,31 @@ def run_slam_pass(np, torch, mode, flows, disps=None, check=False):
                     raise AssertionError(f"{mode}: frame {fid} map is on {t.device}")
             if not np.isfinite(f.Tcw).all():
                 raise AssertionError(f"{mode}: frame {fid} pose is not finite")
-        stats["covis_max_err"] = max(check_window_covis(np, slam, h, i) for h, i in consumed)
+        stats["covis_max_err"] = max(check_window_covis(np, torch, h, i) for h, i in consumed)
     return slam, dt, stats
 
 
 def phase_slam(np, torch, mode, flows, gt, disps=None, n_timed=3):
     """slam-mono / slam-stereo: one checked pass with the launches counted,
-    then n_timed timed passes. Returns (launches, median frames/s, ATE)."""
-    from voldor_tpu_torch.ops import cost as cost_mod
+    then n_timed timed passes. Returns (launch counts, median frames/s, ATE)."""
     from voldor_tpu_torch.utils.evaluation import ate_rmse
 
     with_scale = mode == "mono"  # stereo is metric: no scale alignment
     extent = float(np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=1).max())
-    cost_mod.cost_kernel_launches = 0
+    reset_counts()
     slam, dt0, st = run_slam_pass(np, torch, mode, flows, disps, check=True)
-    launches = cost_mod.cost_kernel_launches
+    counts = read_counts()
     ate = ate_rmse(np.stack([f.Tcw for f in slam.frames]).astype(np.float64), gt, with_scale=with_scale)
     log(f"[slam-{mode}] checked pass: {len(slam.frames)} frames in {dt0:.4f} s; windows dispatched "
         f"{st['windows']}, pipeline flushes {st['flushes']}, keyframes {st['keyframes']} {slam.kf_ids}, "
         f"vo_steps {st['vo_steps']}, depth priors per window {st['priors']}; "
-        f"EM iterations {st['em_iters']}, cost kernel launches {launches}; "
-        f"device covis vs host eval_covisibility max abs err {st['covis_max_err']:.3e} "
+        f"EM iterations {st['em_iters']}, cost kernel launches {counts['cost']} "
+        f"({counts['score']} in score mode), fb_smooth kernel launches {counts['fb']}; "
+        f"device covis vs the same functions on the CPU max abs err {st['covis_max_err']:.3e} "
         f"(tol {COVIS_TOL:g})")
     log(f"[slam-{mode}] {'Sim3' if with_scale else 'metric'} ATE {ate:.6f} vs gate "
         f"{0.02 * extent:.6f} (extent {extent:.4f})")
-    if launches < 8 * st["em_iters"]:
-        raise AssertionError(f"{mode}: cost kernel launched {launches} times, "
-                             f"expected >= {8 * st['em_iters']}")
+    check_counts(mode, counts, st["em_iters"])
     if not ate < 0.02 * extent:
         raise AssertionError(f"{mode}: trajectory fails the ATE gate")
     n_frames = flows.shape[0] + 1
@@ -408,7 +790,38 @@ def phase_slam(np, torch, mode, flows, gt, disps=None, n_timed=3):
         dts.append(dt)
     med = statistics.median(dts)
     log(f"[slam-{mode}] median of {n_timed}: {n_frames / med:.4f} frames/s ({med:.4f} s per pass)")
-    return launches, n_frames / med, ate
+    return counts, n_frames / med, ate
+
+
+def phase_no_sync(np, torch, scene):
+    """The three windows again, every kernel-wrapper call of their depth
+    rounds under torch.cuda.set_sync_debug_mode("error")."""
+    from voldor_tpu_torch.vo import engine as engine_mod
+
+    calls = {}
+
+    def guarded(name, fn):
+        def wrapper(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return wrapper
+
+    names = ("fb_smooth", "cost_map_score", "cost_map_accept")
+    orig = {n: getattr(engine_mod, n) for n in names}
+    for n in names:
+        setattr(engine_mod, n, guarded(n, orig[n]))
+    try:
+        run_sequence(np, torch, scene)
+    finally:
+        for n in names:
+            setattr(engine_mod, n, orig[n])
+    log(f"[no-sync] wrapper calls under set_sync_debug_mode('error') over the 3 windows: {calls}")
+    if set(calls) != set(names):
+        raise AssertionError(f"not every kernel wrapper ran: {calls}")
 
 
 def main():
@@ -419,35 +832,37 @@ def main():
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
     import voldor_tpu_torch  # noqa: F401  (sets the TF32 switches)
-    from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.utils.evaluation import ate_rmse
     from voldor_tpu_torch.vo import engine as engine_mod
 
-    t0 = time.perf_counter()
-    cost_mod.build()
-    log(f"[build] nvcc {' '.join(cost_mod.NVCC_FLAGS)}: "
-        f"{cost_mod.build_seconds if cost_mod.build_seconds is not None else 0.0:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s)")
+    yard_fn = phase_build()
+    sass = sass_counts()
 
-    # the bench's 24-flow scene; the VO windows of phase 4 take its first
-    # 15 flows (the pose draws are sequential, so they are the same)
+    # the bench's 24-flow scene; the VO windows take its first 15 flows
+    # (the pose draws are sequential, so they are the same)
     scene = build_scene(np, torch, SLAM_FLOWS)
-    max_err, kern_ms, plain_ms = phase_kernel(np, torch, scene)
+    bi = bench_inputs(np, torch, scene)
+    fb_err = phase_fb(np, torch, bi)
+    score_err = phase_score(np, torch, bi)
+    accept_frac = phase_accept(np, torch, bi)
+    fb_rec, cost_rec = phase_times(np, torch, bi, yard_fn, sass)
 
     # the slice, counted: every launch from here on is the main path's
-    cost_mod.cost_kernel_launches = 0
+    reset_counts()
     est, walls0, iters, route = run_sequence(np, torch, scene, check=True)
-    launches = cost_mod.cost_kernel_launches
+    win_counts = read_counts()
     log(f"[slice] bootstrap route: {route}; EM iterations per window {iters}; "
-        f"cost kernel launches {launches}; cold wall s {[round(x, 4) for x in walls0]}")
-    if launches < 8 * sum(iters):
-        raise AssertionError(f"cost kernel launched {launches} times, expected >= {8 * sum(iters)}")
+        f"cost kernel launches {win_counts['cost']} ({win_counts['score']} in score mode), "
+        f"fb_smooth kernel launches {win_counts['fb']}; cold wall s {[round(x, 4) for x in walls0]}")
+    check_counts("windows", win_counts, sum(iters))
     gt = np.linalg.inv(scene[5][:N_WINDOWS * WINDOW + 1])  # cam -> world, frames 0..15
     extent = float(np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=1).max())
     ate = ate_rmse(est.astype(np.float64), gt, with_scale=True)
     log(f"[slice] Sim3 ATE {ate:.6f} vs gate {0.02 * extent:.6f} (extent {extent:.4f})")
     if not ate < 0.02 * extent:
         raise AssertionError("trajectory fails the Sim3-ATE gate")
+
+    phase_no_sync(np, torch, scene)
 
     reps = [run_sequence(np, torch, scene)[1] for _ in range(3)]
     med = [statistics.median(r[i] for r in reps) for i in range(N_WINDOWS)]
@@ -483,26 +898,54 @@ def main():
 
     K, planes, _, flows, _, Ts, _ = scene
     gt = np.linalg.inv(Ts)  # cam -> world, frames 0..24
-    launches_mono, fps_mono, ate_mono = phase_slam(np, torch, "mono", flows, gt, n_timed=3)
+    mono, fps_mono, ate_mono = phase_slam(np, torch, "mono", flows, gt, n_timed=3)
     disps = [(BF_STEREO / plane_depth(K, Ts[k][:3, :3], Ts[k][:3, 3], planes, H, W)).astype(np.float32)
              for k in range(SLAM_FLOWS)]
-    launches_st, fps_st, ate_st = phase_slam(np, torch, "stereo", flows, gt, disps=disps, n_timed=1)
+    stereo, fps_st, ate_st = phase_slam(np, torch, "stereo", flows, gt, disps=disps, n_timed=1)
     log(f"[slam] mono {fps_mono:.4f} frames/s (Sim3 ATE {ate_mono:.6f}), stereo {fps_st:.4f} "
-        f"frames/s (metric ATE {ate_st:.6f}); cost kernel launches: windows {launches}, "
-        f"mono pass {launches_mono}, stereo pass {launches_st}")
-    launches += launches_mono + launches_st
+        f"frames/s (metric ATE {ate_st:.6f}); launches cost / fb_smooth: windows "
+        f"{win_counts['cost']} / {win_counts['fb']}, mono pass {mono['cost']} / {mono['fb']}, "
+        f"stereo pass {stereo['cost']} / {stereo['fb']}")
+    paths = (win_counts, mono, stereo)
 
     log(f"[device] {smi}")
-    log(json.dumps({"kernels": [{
-        "name": "cost_map_tracked",
-        "route": "cuda",
-        "source": "voldor_tpu_torch/csrc/cost_kernel.cu",
-        "replaces": "voldor_tpu/ops/pallas_cost.py:33",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    log(json.dumps({"kernels": [
+        {
+            "name": "fb_smooth",
+            "route": "cuda",
+            "source": "voldor_tpu_torch/csrc/fb_smooth_kernel.cu",
+            "replaces": "voldor_tpu/ops/fb_smooth.py:134",
+            "launches": sum(c["fb"] for c in paths),
+            "max_abs_err": fb_err,
+            "ms": fb_rec["ms"],
+            "plain_ms": fb_rec["plain_ms"],
+            "bound_ms": fb_rec["bound_ms"],
+            "bound_us": fb_rec["bound_ms"] * 1e3,
+            "bound_by": fb_rec["bound_by"],
+            "library_ms": None,
+            "ms_m2": fb_rec["ms_m2"],
+            "serial_steps": fb_rec["serial_steps"],
+        },
+        {
+            "name": "cost_map_tracked",
+            "route": "cuda",
+            "source": "voldor_tpu_torch/csrc/cost_kernel.cu",
+            "replaces": "voldor_tpu/ops/pallas_cost.py:33",
+            "launches": sum(c["cost"] for c in paths),
+            "score_launches": sum(c["score"] for c in paths),
+            "max_abs_err": score_err,
+            "accept_agreement": accept_frac,
+            "ms": cost_rec["ms"],
+            "plain_ms": cost_rec["plain_ms"],
+            "bound_ms": cost_rec["bound_ms"],
+            "bound_us": cost_rec["bound_ms"] * 1e3,
+            "bound_by": cost_rec["bound_by"],
+            "library_ms": None,
+            "score_ms": cost_rec["score_ms"],
+            "raw_sums_yardstick_ms": cost_rec["yardstick_ms"],
+            "ms_by_k": cost_rec["ms_by_k"],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

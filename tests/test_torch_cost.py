@@ -1,13 +1,16 @@
 """The cost kernel's module (voldor_tpu_torch/ops/cost.py) against the JAX
 package, on the CPU.
 
-On CPU tensors ``cost_map_tracked`` runs its plain version; it is held
+On CPU tensors ``cost_map_score`` runs its plain version; it is held
 against the vmapped ``em.compute_cost_map_tracked`` (the case of
 tests/test_pallas_cost.py: 32x128, N=4, K=3), with the fused depth-prior arm
-at D=1 and D=2 (including the disparity slot, em.py:317-319), and against
-the Pallas kernel itself in interpret mode at one tiny shape. Tolerance:
-elementwise rtol = atol = 1e-5 and an identical +inf pattern. The kernel
-itself runs only on a CUDA device (test marked ``gpu``).
+at D=1 and D=2 (including the disparity slot, em.py:317-319), and the raw
+sums against the Pallas kernel itself in interpret mode at one tiny shape.
+Tolerance: elementwise rtol = atol = 1e-5 and an identical +inf pattern.
+The plain accept, ``accept_reference``, is held bitwise to the accept of
+``em.optimize_depth_batched`` on scripted costs (ties, masks, all-+inf
+pixels, NaNs). The kernel itself runs only on a CUDA device (tests marked
+``gpu``).
 
 The JAX side runs op by op (``jax.disable_jit``): compiled, XLA on the CPU
 contracts ``a*b + c`` into fused multiply-adds and divides by constants
@@ -30,6 +33,7 @@ from voldor_tpu.ops.pallas_cost import cost_map_tracked_pallas
 from voldor_tpu.vo import em as jem
 from voldor_tpu_torch.convert import em_params_from_numpy
 from voldor_tpu_torch.ops import cost as tcost
+from voldor_tpu_torch.vo import em as tem
 
 from synthetic import plane_depth, render_window
 
@@ -118,10 +122,10 @@ def test_cost_map_tracked_matches_jax(active_n, D, disparity):
             )
         )(jnp.asarray(c["cands"]))
     trig, ttrack, ttinb, tRs, tts, tps = _to_torch(rig, track, tinb, ps, c)
-    got = tcost.normalize_cost(*tcost.cost_map_tracked(
+    got = tcost.cost_map_score(
         torch.as_tensor(c["cands"]), ttrack, ttinb, trig, tRs, tts, active_n,
         em_params_from_numpy(c["p"]), prior_samples=tps,
-    ))
+    )
     _assert_cost_equal(got, ref)
     if disparity:  # the disparity slot really weighs differently
         assert float(c["p"].disp_delta) > 0
@@ -145,7 +149,7 @@ def test_cost_map_tracked_matches_pallas_interpret():
             jnp.int32(2), c["p"], prior_samples=ps, interpret=True,
         )
     trig, ttrack, ttinb, tRs, tts, tps = _to_torch(rig, track, tinb, ps, c)
-    cs_t, ws_t = tcost.cost_map_tracked(
+    cs_t, ws_t = tcost.cost_map_tracked_reference(
         torch.as_tensor(cands), ttrack, ttinb, trig, tRs, tts, 2,
         em_params_from_numpy(c["p"]), prior_samples=tps,
     )
@@ -154,27 +158,117 @@ def test_cost_map_tracked_matches_pallas_interpret():
 
 
 def test_cost_wrapper_takes_plain_version_on_cpu():
-    """The wrapper picks the plain version by device alone: CPU tensors never
-    touch the kernel or its counter."""
+    """The wrappers pick the plain versions by device alone: CPU tensors never
+    touch the kernel or its counters; other devices raise."""
     c = _case(8, 128, 2)
     rig, track, tinb, ps = _jax_planes(c, 2, 1)
     trig, ttrack, ttinb, tRs, tts, tps = _to_torch(rig, track, tinb, ps, c)
-    before = tcost.cost_kernel_launches
-    args = (torch.as_tensor(c["cands"][:2]), ttrack, ttinb, trig, tRs, tts, 2,
-            em_params_from_numpy(c["p"]))
-    a = tcost.cost_map_tracked(*args, prior_samples=tps)
-    b = tcost.cost_map_tracked_reference(*args, prior_samples=tps)
-    assert tcost.cost_kernel_launches == before
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    before = (tcost.cost_kernel_launches, tcost.cost_score_launches)
+    cands = torch.as_tensor(c["cands"][:2])
+    planes = (ttrack, ttinb, trig, tRs, tts, 2, em_params_from_numpy(c["p"]))
+    costs = tcost.normalize_cost(*tcost.cost_map_tracked_reference(cands, *planes, prior_samples=tps))
+    assert torch.equal(tcost.cost_map_score(cands, *planes, prior_samples=tps), costs)
+    depth = torch.as_tensor(c["depth0"] * 1.1)
+    cost = torch.full_like(depth, 5.0)
+    masks = torch.ones(cands.shape, dtype=torch.bool)
+    masks[1, :, ::2] = False
+    d, k = tcost.cost_map_accept(depth, cost, cands, masks, *planes, prior_samples=tps)
+    d_ref, k_ref = tcost.accept_reference(depth, cost, costs, cands, masks)
+    assert torch.equal(d, d_ref) and torch.equal(k, k_ref)
+    assert (tcost.cost_kernel_launches, tcost.cost_score_launches) == before
+    assert torch.equal(depth, torch.as_tensor(c["depth0"] * 1.1))  # inputs untouched
     with pytest.raises(ValueError):
-        tcost.cost_map_tracked(torch.zeros((2, 8, 128), device="meta"), *args[1:])
+        tcost.cost_map_score(torch.zeros((2, 8, 128), device="meta"), *planes)
 
 
-@pytest.mark.gpu
-def test_cost_kernel_matches_plain_on_gpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the cost kernel has no CPU mode")
+def _scripted_costs(kind, h, w, sizes, seed):
+    """One (K, h, w) cost stack per accept call of a batched depth round."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in sizes:
+        if kind == "ties":  # few distinct values: most pixels tie somewhere
+            c = rng.choice(np.float32([0.5, 1.0, 1.5]), (k, h, w))
+        else:
+            c = rng.uniform(0.2, 3.0, (k, h, w)).astype(np.float32)
+        if kind == "masks":  # the lowest costs fall where the masks are off
+            c[:, :, :2] = 0.01
+            c[:, :2, :] = 0.01
+        if kind == "all_inf":
+            c[:, ::3, :] = np.inf
+        if kind == "nan":  # NaN beside lower and higher costs of other k
+            c[rng.integers(0, k), ::2, ::3] = np.nan
+            c[:, 5:9, 5:9] = np.nan
+        out.append(c.astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["ties", "masks", "all_inf", "nan"])
+def test_accept_reference_matches_jax_accept(kind):
+    """A batched depth round of jem.optimize_depth_batched with a scripted
+    batch_cost_fn against the port's round with accept_reference on the
+    same costs: every accepted depth and cost is identical."""
+    h, w, n_rand, gstep, lwidth = 16, 24, 5, 4, 8
+    sizes = [n_rand, 4] + [4] * 3  # random, global, jump offsets 1, 2, 4
+    costs = _scripted_costs(kind, h, w, sizes, seed=["ties", "masks", "all_inf", "nan"].index(kind))
+    rng = np.random.default_rng(11)
+    depth0 = rng.uniform(1.0, 9.0, (h, w)).astype(np.float32)
+    cost0 = rng.uniform(0.5, 2.5, (h, w)).astype(np.float32)
+    cost0[::4, ::5] = np.inf
+    key = jax.random.PRNGKey(5)
+    u = np.array(jax.random.uniform(key, (n_rand, h, w), jnp.float32))
+
+    calls = iter(costs)
+
+    def batch_cost_fn(cands):
+        c = next(calls)
+        assert c.shape == cands.shape
+        return jnp.asarray(c)
+
+    with jax.disable_jit():
+        d_j, c_j = jem.optimize_depth_batched(
+            jnp.asarray(depth0), jnp.asarray(cost0), batch_cost_fn, key, n_rand_samples=n_rand,
+            global_prop_step=gstep, local_prop_width=lwidth, range_factor=1.0,
+        )
+    assert next(calls, None) is None
+    calls = iter(costs)
+
+    def accept_fn(depth, cost, cands, masks):
+        c = torch.as_tensor(next(calls))
+        assert c.shape == cands.shape
+        return tcost.accept_reference(depth, cost, c, cands, masks)
+
+    d_t, c_t = tem.optimize_depth_batched(
+        torch.as_tensor(depth0), torch.as_tensor(cost0), accept_fn, torch.as_tensor(u),
+        global_prop_step=gstep, local_prop_width=lwidth, range_factor=1.0,
+    )
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+    assert not np.array_equal(d_t.numpy(), depth0)  # the round did accept something
+
+
+def test_accept_reference_semantics():
+    """The four rules on one pixel each (K = 3, current cost 1.0)."""
+    cands = torch.tensor([[[1.0, 1.0, 1.0, 1.0]], [[2.0, 2.0, 2.0, 2.0]], [[3.0, 3.0, 3.0, 3.0]]])
+    inf, nan = float("inf"), float("nan")
+    costs = torch.tensor([
+        [[0.5, 0.2, inf, 0.3]],
+        [[0.5, 0.1, inf, nan]],
+        [[0.4, 0.1, inf, 0.1]],
+    ])
+    masks = torch.ones_like(cands, dtype=torch.bool)
+    masks[1, 0, 1] = False  # the lowest cost of pixel 1 is masked out
+    d, c = tcost.accept_reference(torch.zeros(1, 4), torch.ones(1, 4), costs, cands, masks)
+    # pixel 0: the strict minimum (k=2); pixel 1: k=2, the masked k=1 never
+    # wins; pixel 2: all +inf keeps the pixel; pixel 3: the NaN wins the
+    # argmin, so nothing is accepted
+    assert d.tolist() == [[3.0, 3.0, 0.0, 0.0]]
+    np.testing.assert_array_equal(c.numpy(), np.float32([[0.4, 0.1, 1.0, 1.0]]))
+    masks[:] = True
+    d, _ = tcost.accept_reference(torch.zeros(1, 4), torch.ones(1, 4), costs, cands, masks)
+    assert d[0, 1] == 2.0  # unmasked, the tie 0.1 goes to the lower k
+
+
+def _gpu_planes():
     c = _case(32, 128, 4)
     rig, track, tinb, ps = _jax_planes(c, 3, 2)
     dev = torch.device("cuda")
@@ -182,10 +276,35 @@ def test_cost_kernel_matches_plain_on_gpu():
         x.to(dev) if isinstance(x, torch.Tensor) else tuple(y.to(dev) for y in x)
         for x in _to_torch(rig, track, tinb, ps, c)
     )
-    args = (torch.as_tensor(c["cands"], device=dev), ttrack, ttinb, trig, tRs, tts, 3,
-            em_params_from_numpy(c["p"]))
+    planes = (ttrack, ttinb, trig, tRs, tts, 3, em_params_from_numpy(c["p"]))
+    return c, dev, planes, tps
+
+
+@pytest.mark.gpu
+def test_cost_kernel_matches_plain_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the cost kernel has no CPU mode")
+    c, dev, planes, tps = _gpu_planes()
+    cands = torch.as_tensor(c["cands"], device=dev)
     before = tcost.cost_kernel_launches
-    got = tcost.normalize_cost(*tcost.cost_map_tracked(*args, prior_samples=tps))
+    got = tcost.cost_map_score(cands, *planes, prior_samples=tps)
     assert tcost.cost_kernel_launches == before + 1
-    ref = tcost.normalize_cost(*tcost.cost_map_tracked_reference(*args, prior_samples=tps))
+    ref = tcost.normalize_cost(*tcost.cost_map_tracked_reference(cands, *planes, prior_samples=tps))
     _assert_cost_equal(got.cpu(), ref.cpu())
+
+
+@pytest.mark.gpu
+def test_cost_kernel_accept_matches_plain_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the cost kernel has no CPU mode")
+    c, dev, planes, tps = _gpu_planes()
+    cands = torch.as_tensor(c["cands"], device=dev)
+    masks = torch.ones(cands.shape, dtype=torch.bool, device=dev)
+    masks[0, :, ::3] = False
+    depth = torch.as_tensor(c["depth0"] * 1.3, device=dev)
+    cost = tcost.cost_map_score(depth[None].contiguous(), *planes, prior_samples=tps)[0]
+    costs = tcost.normalize_cost(*tcost.cost_map_tracked_reference(cands, *planes, prior_samples=tps))
+    d_ref, c_ref = tcost.accept_reference(depth, cost, costs, cands, masks)
+    d, k = tcost.cost_map_accept(depth.clone(), cost.clone(), cands, masks, *planes, prior_samples=tps)
+    same = torch.isclose(d, d_ref, rtol=1e-5, atol=1e-5)
+    assert same.float().mean().item() >= 0.999

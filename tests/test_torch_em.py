@@ -20,6 +20,7 @@ from voldor_tpu.config import VoldorConfig
 from voldor_tpu.ops import lie as jlie
 from voldor_tpu.vo import em as jem
 from voldor_tpu_torch.convert import em_params_from_numpy
+from voldor_tpu_torch.ops import cost as tcost
 from voldor_tpu_torch.vo import em as tem
 
 from synthetic import plane_depth, render_window
@@ -135,7 +136,8 @@ def _agree(a, b, frac=0.999):
 @pytest.mark.parametrize("with_priors", [False, True])
 def test_optimize_depth_batched_matches_jax(win, with_priors):
     """One batched depth round with the JAX side's uniforms; the JAX
-    reference is the harness of tests/test_em.py:259-264."""
+    reference is the harness of tests/test_em.py:259-264, the port side
+    scores and accepts through ops/cost.py as the engine does."""
     p, tp = win["p"], win["tp"]
     key = jax.random.PRNGKey(3)
     n_rand, gstep, lwidth = 6, 8, 16
@@ -164,14 +166,15 @@ def test_optimize_depth_batched_matches_jax(win, with_priors):
     tps = None if ps is None else tuple(_t(a) for a in ps)
     trig, ttinb, tRs, tts = _t(rig), _t(tinb), _t(win["Rs"]), _t(win["ts"])
 
-    def tbatch(cands):
-        return torch.stack([tem.compute_cost_map_tracked(
-            c, ttrack, ttinb, trig, tRs, tts, tps, 3, tp) for c in cands])
+    planes = (ttrack, ttinb, trig, tRs, tts, 3, tp)
+
+    def taccept(depth, cost, cands, masks):  # the engine's wiring (vo/engine.py)
+        return tcost.cost_map_accept(depth, cost, cands, masks, *planes, prior_samples=tps)
 
     d_t = _t(depth0)
-    c_t = tbatch(d_t[None])[0]
+    c_t = tcost.cost_map_score(d_t[None], *planes, prior_samples=tps)[0]
     d_t, c_t = tem.optimize_depth_batched(
-        d_t, c_t, tbatch, _t(u), global_prop_step=gstep, local_prop_width=lwidth, range_factor=1.0
+        d_t, c_t, taccept, _t(u), global_prop_step=gstep, local_prop_width=lwidth, range_factor=1.0
     )
     _agree(d_t.numpy(), d_j)
     _agree(c_t.numpy(), c_j)

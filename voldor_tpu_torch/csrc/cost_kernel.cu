@@ -1,26 +1,37 @@
-// Fused multi-frame Fisk cost of K candidate depth maps, for sm_90a.
+// Fused multi-frame Fisk cost of K candidate depth maps, with the
+// normalisation and the per-pixel accept of a proposal batch, for sm_90a.
 //
 // Replaces the Pallas TPU kernel voldor_tpu/ops/pallas_cost.py:_cost_kernel
 // (both arms: the flow arm over the N window frames and the fused
-// depth-prior arm over D prior cameras). Output: the raw per-pixel
-// (cost_sum, weight_sum) of every candidate; ops/cost.py:normalize_cost
-// divides them.
+// depth-prior arm over D prior cameras), its normalize_cost (:225), and the
+// accept of voldor_tpu/vo/em.py:optimize_depth_batched (:596-610).
 //
-// What bounds it on the card: memory reads. Per pixel the kernel reads
-// 6*N + 2*D input planes (track x/y, observed flow x/y, rigidness, in-bounds
-// byte; prior target and weight) plus K candidates, and writes 2*K floats;
-// the arithmetic per byte is a few Fisk densities (powf/expf/logf), far
-// below what would make it compute-bound.
+// Two modes, one thread per pixel:
+// * score: writes the normalised (K, h, w) cost of every candidate;
+// * accept: masks the candidates (uint8 (K, h, w), or none = all kept),
+//   takes the first argmin over K as jnp.min / jnp.argmin do (ties go to
+//   the lowest k, a NaN among the kept costs wins), and where that cost is
+//   below the pixel's current cost writes the candidate's depth and cost
+//   over the current ones, in place. Nothing else is written.
 //
-// Design: one thread per pixel, consecutive threads on consecutive columns
-// (coalesced along w). The thread holds K pairs of accumulators and the K
-// chained 3-D points in registers, so each input plane is read ONCE per
-// pixel for all K candidates (the TPU kernel re-streamed every plane per
-// candidate). The candidate-independent half of the Fisk model (observed
-// flow magnitude -> shape, scale and outlier density; prior disparity ->
-// shape, scale, outlier density) is computed once per pixel and frame.
-// Poses and scalars travel by value in one small struct. No padding: the
-// ragged edge is masked by the bounds check.
+// What bounds it on the card: the arithmetic. Per pixel the accept reads
+// K candidates, depth and cost, 6 planes per active window frame (track
+// x/y, observed flow x/y, rigidness, in-bounds byte), 2 per prior and the
+// masks, and writes 8 bytes (~180 B at K=10, N=5, D=2: ~6 us at 3.35 TB/s).
+// Each of the K * (N + D) Fisk terms is two IEEE powf, a logf and four
+// IEEE divisions, hundreds of instructions, so the instruction count, not
+// the bytes, sets the floor (chip_smoke.py reports both from the SASS).
+//
+// Design: consecutive threads on consecutive pixels (coalesced). The
+// thread keeps its K candidates, their K chained 3-D points and K
+// accumulator pairs in registers, so each input plane is read once per
+// pixel for all K (the TPU kernel re-streamed every plane per candidate),
+// and the candidate-independent half of every Fisk term is computed once
+// per pixel and frame. The flow arm runs first; the prior arm then rebuilds
+// each candidate's frame-0 point from its depth, so the chained points are
+// dead by then and fewer registers are live at once. The (N + D) x 12 pose
+// rows live on the device and each block reads them into shared memory
+// once: the caller never copies a pose to the host.
 //
 // Numerics: IEEE logf/expf/powf/sqrtf and divisions, built with
 // --fmad=false and without fast math, in the JAX package's operation order
@@ -32,10 +43,9 @@
 
 #define COST_MAX_N 8
 #define COST_MAX_D 4
+#define COST_MAX_K 16
 
 struct CostParams {
-  float poses[COST_MAX_N][12];   // [R row-major (9), t (3)] per window frame
-  float pposes[COST_MAX_D][12];  // the same for each prior camera
   float fx, fy, cx, cy;
   float lam, arf, bf, omega;
   int n_frames;  // N planes per input stack
@@ -47,6 +57,7 @@ struct CostParams {
 
 namespace {
 
+constexpr int kThreads = 128;
 constexpr float kEstRf = 0.5f;
 constexpr float kFiskA1 = 0.01f;
 constexpr float kFiskA2 = 0.09f;
@@ -82,75 +93,69 @@ __device__ __forceinline__ FiskModel fisk_model(float fmag, float outlier_x) {
   return m;
 }
 
-template <int KT>
-__global__ void cost_kernel(const float* __restrict__ cands,
-                            const float* __restrict__ tx,
-                            const float* __restrict__ ty,
-                            const float* __restrict__ obx,
-                            const float* __restrict__ oby,
-                            const float* __restrict__ rig,
-                            const uint8_t* __restrict__ inb,
-                            const float* __restrict__ ptgt,
-                            const float* __restrict__ pwgt,
-                            float* __restrict__ cost_out,
-                            float* __restrict__ wsum_out,
-                            const CostParams prm) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= prm.w) return;
-  const size_t hw = (size_t)prm.h * prm.w;
-  const size_t pix = (size_t)y * prm.w + x;
+struct CostInputs {
+  const float* poses;  // (N + D, 12) rows [R row-major (9), t (3)]: window, then priors
+  const float* cands;  // (K, h, w)
+  const float* tx;     // (N, h, w) track x/y, observed flow x/y, rigidness
+  const float* ty;
+  const float* obx;
+  const float* oby;
+  const float* rig;
+  const uint8_t* inb;  // (N, h, w)
+  const float* ptgt;   // (D, h, w) prior target and weight
+  const float* pwgt;
+  const uint8_t* masks;  // accept: (K, h, w) or null (every candidate kept)
+  float* depth;          // accept: (h, w), read and written
+  float* cost;           // accept: (h, w), read and written
+  float* out;            // score: (K, h, w) normalised costs
+};
+
+// Registers (ptxas -v, sm_90a, --fmad=false): without bounds 39 / 71 / 121
+// / 168 for KT = 1 / 4 / 10 / 16; with the bounds below 48 / 84 / 121 /
+// 157, no spills, 576 B of shared memory. At KT = 10 that is 4 blocks of
+// 128 threads per SM (16 warps); the bounds hold that residency (3 blocks
+// at KT = 16) so that later growth spills instead of silently halving it.
+// Forcing 7 blocks, one wave for the 886 blocks of a 185 x 613 launch,
+// would cap KT = 10 at 72 registers, below its ~6 * KT live candidate
+// state.
+template <int KT, bool ACCEPT>
+__global__ void __launch_bounds__(kThreads, KT > 10 ? 3 : 4)
+cost_kernel(const CostInputs in, const CostParams prm) {
+  __shared__ float sposes[(COST_MAX_N + COST_MAX_D) * 12];
+  for (int i = threadIdx.x; i < (prm.n_frames + prm.n_priors) * 12; i += blockDim.x)
+    sposes[i] = in.poses[i];
+  __syncthreads();
+
+  const int hw = prm.h * prm.w;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= hw) return;
+  const int y = pix / prm.w;
+  const int x = pix - y * prm.w;
   const int K = prm.k;
 
   // backprojection of every candidate (em._backproject)
   const float bx = ((float)x - prm.cx) / prm.fx;
   const float by = ((float)y - prm.cy) / prm.fy;
-  float ox[KT], oy[KT], oz[KT];
-  float cost[KT], wsum[KT], pcost[KT], pwsum[KT];
+  float d[KT], ox[KT], oy[KT], oz[KT], cost[KT], wsum[KT];
 #pragma unroll
   for (int k = 0; k < KT; ++k) {
-    const float d = (k < K) ? cands[k * hw + pix] : 1.0f;
-    ox[k] = bx * d;
-    oy[k] = by * d;
-    oz[k] = d;
+    d[k] = (k < K) ? in.cands[k * hw + pix] : 1.0f;
+    ox[k] = bx * d[k];
+    oy[k] = by * d[k];
+    oz[k] = d[k];
     cost[k] = 0.0f;
     wsum[k] = 0.0f;
-    pcost[k] = 0.0f;
-    pwsum[k] = 0.0f;
-  }
-
-  // fused depth-prior arm (em.prior_cost_sums): the frame-0 point's depth
-  // in each prior camera against the pre-sampled target
-  for (int dd = 0; dd < prm.n_priors; ++dd) {
-    const float tgt = ptgt[dd * hw + pix];
-    const float wgt = pwgt[dd * hw + pix];
-    if (!(tgt > 0.0f && wgt > 0.0f)) continue;
-    const float* P = prm.pposes[dd];
-    // fisk.depth_rigidness(d1=max(nz,1e-12), d2=max(tgt,1e-12), bf, omega, arf)
-    const float disp2 = (prm.bf / fmaxf(tgt, 1e-12f)) / prm.arf;
-    const FiskModel m = fisk_model(disp2, prm.omega * disp2);
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      if (k >= K) break;
-      const float nz = P[6] * ox[k] + P[7] * oy[k] + P[8] * oz[k] + P[11];
-      if (!(nz > 0.0f)) continue;
-      const float disp1 = (prm.bf / fmaxf(nz, 1e-12f)) / prm.arf;
-      const float p_in = fisk_pdf(fabsf(disp1 - disp2), m.c, m.s);
-      const float r = p_in / (p_in + m.p_out);
-      pcost[k] = pcost[k] + (-wgt) * logf(fmaxf(r, 1e-30f));
-      pwsum[k] = pwsum[k] + wgt;
-    }
   }
 
   // flow arm (em.compute_cost_map_tracked): chain through the window
   const int n_use = min(prm.n_frames, prm.active_n);
   for (int f = 0; f < n_use; ++f) {
-    const size_t off = f * hw + pix;
-    const float* P = prm.poses[f];
-    const bool in_b = inb[off] != 0;
-    const float tfx = tx[off], tfy = ty[off];
-    const float ofx = obx[off], ofy = oby[off];
-    const float rg = rig[off];
+    const int off = f * hw + pix;
+    const float* P = sposes + f * 12;
+    const bool in_b = in.inb[off] != 0;
+    const float tfx = in.tx[off], tfy = in.ty[off];
+    const float ofx = in.obx[off], ofy = in.oby[off];
+    const float rg = in.rig[off];
     // fisk.rigidness_xy, candidate-independent part
     const float obs_fmag = sqrtf(ofx * ofx + ofy * ofy) / prm.arf;
     const FiskModel m = fisk_model(obs_fmag, prm.lam * obs_fmag);
@@ -178,53 +183,111 @@ __global__ void cost_kernel(const float* __restrict__ cands,
     }
   }
 
+  // fused depth-prior arm (em.prior_cost_sums): the frame-0 point's depth
+  // in each prior camera against the pre-sampled target, summed apart from
+  // the flow arm and added to it at the end, as the plain version does
+  if (prm.n_priors > 0) {
+    float pcost[KT], pwsum[KT];
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      pcost[k] = 0.0f;
+      pwsum[k] = 0.0f;
+    }
+    for (int dd = 0; dd < prm.n_priors; ++dd) {
+      const float tgt = in.ptgt[dd * hw + pix];
+      const float wgt = in.pwgt[dd * hw + pix];
+      if (!(tgt > 0.0f && wgt > 0.0f)) continue;
+      const float* P = sposes + (prm.n_frames + dd) * 12;
+      // fisk.depth_rigidness(d1=max(nz,1e-12), d2=max(tgt,1e-12), bf, omega, arf)
+      const float disp2 = (prm.bf / fmaxf(tgt, 1e-12f)) / prm.arf;
+      const FiskModel m = fisk_model(disp2, prm.omega * disp2);
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        if (k >= K) break;
+        const float nz = P[6] * (bx * d[k]) + P[7] * (by * d[k]) + P[8] * d[k] + P[11];
+        if (!(nz > 0.0f)) continue;
+        const float disp1 = (prm.bf / fmaxf(nz, 1e-12f)) / prm.arf;
+        const float p_in = fisk_pdf(fabsf(disp1 - disp2), m.c, m.s);
+        const float r = p_in / (p_in + m.p_out);
+        pcost[k] = pcost[k] + (-wgt) * logf(fmaxf(r, 1e-30f));
+        pwsum[k] = pwsum[k] + wgt;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      cost[k] = cost[k] + pcost[k];
+      wsum[k] = wsum[k] + pwsum[k];
+    }
+  }
+
+  // normalize_cost: cost / max(weight, FLT_EPSILON), +inf where weight == 0
+  float best = __int_as_float(0x7f800000);
+  float best_d = d[0];
+  bool best_nan = false;
 #pragma unroll
   for (int k = 0; k < KT; ++k) {
     if (k >= K) break;
-    cost_out[k * hw + pix] = cost[k] + pcost[k];
-    wsum_out[k * hw + pix] = wsum[k] + pwsum[k];
+    const float wk = wsum[k];
+    float c = cost[k] / (wk < kZde ? kZde : wk);
+    if (wk == 0.0f) c = __int_as_float(0x7f800000);
+    if (!ACCEPT) {
+      in.out[k * hw + pix] = c;
+      continue;
+    }
+    if (in.masks != nullptr && in.masks[k * hw + pix] == 0) c = __int_as_float(0x7f800000);
+    if (best_nan) continue;
+    if (c != c) {  // the first NaN wins, as in jnp.min / jnp.argmin
+      best = c;
+      best_d = d[k];
+      best_nan = true;
+    } else if (c < best) {  // strict: ties keep the lowest k
+      best = c;
+      best_d = d[k];
+    }
+  }
+  if (ACCEPT && best < in.cost[pix]) {  // false for a NaN on either side
+    in.depth[pix] = best_d;
+    in.cost[pix] = best;
   }
 }
 
 template <int KT>
-cudaError_t launch(const float* cands, const float* tx, const float* ty,
-                   const float* obx, const float* oby, const float* rig,
-                   const uint8_t* inb, const float* ptgt, const float* pwgt,
-                   float* cost_out, float* wsum_out, const CostParams& prm,
+cudaError_t launch(bool accept, const CostInputs& in, const CostParams& prm,
                    cudaStream_t stream) {
-  const int threads = 128;
-  dim3 grid((prm.w + threads - 1) / threads, prm.h);
-  cost_kernel<KT><<<grid, threads, 0, stream>>>(cands, tx, ty, obx, oby, rig,
-                                                inb, ptgt, pwgt, cost_out,
-                                                wsum_out, prm);
+  const int hw = prm.h * prm.w;
+  const int blocks = (hw + kThreads - 1) / kThreads;
+  if (accept) {
+    cost_kernel<KT, true><<<blocks, kThreads, 0, stream>>>(in, prm);
+  } else {
+    cost_kernel<KT, false><<<blocks, kThreads, 0, stream>>>(in, prm);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t as int (0 = launched). Launches on `stream` and does
-// not synchronise; allocates nothing.
-extern "C" int cost_map_tracked_launch(const float* cands, const float* tx,
-                                       const float* ty, const float* obx,
-                                       const float* oby, const float* rig,
-                                       const uint8_t* inb, const float* ptgt,
-                                       const float* pwgt, float* cost_out,
-                                       float* wsum_out, const CostParams* prm,
-                                       void* stream) {
-  if (prm->k < 1 || prm->k > 16 || prm->n_frames > COST_MAX_N ||
-      prm->n_priors > COST_MAX_D || prm->h < 1 || prm->w < 1) {
+// mode 0 = score (writes out), 1 = accept (updates depth and cost in place;
+// masks may be null). `poses` is a device pointer to the (N + D, 12) pose
+// rows. Returns a cudaError_t as int (0 = launched). Launches on `stream`
+// and does not synchronise; allocates nothing.
+extern "C" int cost_kernel_launch(int mode, const float* poses, const float* cands,
+                                  const float* tx, const float* ty, const float* obx,
+                                  const float* oby, const float* rig, const uint8_t* inb,
+                                  const float* ptgt, const float* pwgt,
+                                  const uint8_t* masks, float* depth, float* cost,
+                                  float* out, const CostParams* prm, void* stream) {
+  if (mode < 0 || mode > 1 || prm->k < 1 || prm->k > COST_MAX_K ||
+      prm->n_frames < 1 || prm->n_frames > COST_MAX_N || prm->n_priors < 0 ||
+      prm->n_priors > COST_MAX_D || prm->h < 1 || prm->w < 1 ||
+      (long long)prm->h * prm->w * COST_MAX_K > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
+  const CostInputs in{poses, cands, tx, ty, obx, oby, rig, inb, ptgt, pwgt,
+                      masks, depth, cost, out};
+  const bool accept = mode == 1;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (prm->k <= 1) {
-    err = launch<1>(cands, tx, ty, obx, oby, rig, inb, ptgt, pwgt, cost_out, wsum_out, *prm, s);
-  } else if (prm->k <= 4) {
-    err = launch<4>(cands, tx, ty, obx, oby, rig, inb, ptgt, pwgt, cost_out, wsum_out, *prm, s);
-  } else if (prm->k <= 10) {
-    err = launch<10>(cands, tx, ty, obx, oby, rig, inb, ptgt, pwgt, cost_out, wsum_out, *prm, s);
-  } else {
-    err = launch<16>(cands, tx, ty, obx, oby, rig, inb, ptgt, pwgt, cost_out, wsum_out, *prm, s);
-  }
-  return (int)err;
+  if (prm->k <= 1) return (int)launch<1>(accept, in, *prm, s);
+  if (prm->k <= 4) return (int)launch<4>(accept, in, *prm, s);
+  if (prm->k <= 10) return (int)launch<10>(accept, in, *prm, s);
+  return (int)launch<16>(accept, in, *prm, s);
 }

@@ -1,60 +1,51 @@
-"""Fused multi-frame Fisk cost of candidate depth maps: the hand-written
-CUDA kernel (``csrc/cost_kernel.cu``), its wrapper and its plain version.
+"""Fused multi-frame Fisk cost of candidate depth maps, with the
+normalisation and the per-pixel accept of a proposal batch: the
+hand-written CUDA kernel (``csrc/cost_kernel.cu``), its wrappers and their
+plain versions.
 
 Counterpart of ``voldor_tpu/ops/pallas_cost.py`` (``_cost_kernel`` :33,
-``cost_map_tracked_pallas`` :118, ``normalize_cost`` :225).
+``cost_map_tracked_pallas`` :118, ``normalize_cost`` :225) and of the
+accept of ``voldor_tpu/vo/em.py:optimize_depth_batched`` (:596-610).
 
-* ``cost_map_tracked`` — the wrapper. For CUDA tensors it launches the
-  kernel (and counts the launch in ``cost_kernel_launches``); for CPU
-  tensors it calls the plain version. There is no fallback from one to the
-  other.
-* ``cost_map_tracked_reference`` — the plain PyTorch version: a transcription
-  of ``em.compute_cost_map_tracked`` (em.py:208-268) and
-  ``em.prior_cost_sums`` (em.py:271-298), batched over the K candidates and
-  returning raw sums.
+* ``cost_map_score`` — the normalised (K, h, w) cost of K candidates.
+* ``cost_map_accept`` — scores a proposal batch and accepts, per pixel, the
+  first argmin over the kept candidates where it lowers the current cost.
 
-The kernel is compiled with nvcc from the sources in this package on first
-use, into ``voldor_tpu_torch/_build/`` (keyed on a hash of the sources and
-flags), and bound through ctypes.
+For CUDA tensors both launch the kernel (each launch counted in
+``cost_kernel_launches``, the score-mode ones also in
+``cost_score_launches``); for CPU tensors they compose the plain versions,
+``cost_map_tracked_reference`` (a transcription of
+``em.compute_cost_map_tracked`` (em.py:208-268) and ``em.prior_cost_sums``
+(em.py:271-298), batched over the K candidates, returning raw sums) ->
+``normalize_cost`` -> ``accept_reference``. There is no fallback from one
+to the other. The wrappers make no host-device sync: the pose rows are
+built on the device and the kernel reads them there.
+
+The kernel is built with the package's other kernels by ``ops/_build.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-from voldor_tpu_torch.ops import fisk
+from voldor_tpu_torch.ops import _build, fisk
 
 MAX_N = 8  # window frames the kernel takes (COST_MAX_N)
 MAX_D = 4  # depth priors (COST_MAX_D)
-MAX_K = 16  # candidates per launch
+MAX_K = 16  # candidates per launch (COST_MAX_K)
 
-# Launches of the CUDA kernel since the last reset (plain int; the chip
-# smoke test reads it to show the main path went through the kernel).
-cost_kernel_launches = 0
+# Launches of the CUDA kernel since the last reset (plain ints; the chip
+# smoke test reads them to show the main path went through the kernel).
+cost_kernel_launches = 0  # every launch, score and accept
+cost_score_launches = 0  # the score-mode ones among them
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "cost_kernel.cu",)
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
-_lib = None
-build_seconds = None  # wall time of the nvcc build in this process, if any
+_SCORE, _ACCEPT = 0, 1
 
 
 class _CostParams(ctypes.Structure):
     _fields_ = [
-        ("poses", (ctypes.c_float * 12) * MAX_N),
-        ("pposes", (ctypes.c_float * 12) * MAX_D),
         ("fx", ctypes.c_float), ("fy", ctypes.c_float),
         ("cx", ctypes.c_float), ("cy", ctypes.c_float),
         ("lam", ctypes.c_float), ("arf", ctypes.c_float),
@@ -65,42 +56,9 @@ class _CostParams(ctypes.Structure):
     ]
 
 
-def _nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root:
-            cands.append(os.path.join(root, "bin", "nvcc"))
-    for c in cands:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found: the cost kernel is built from source with nvcc")
-
-
-def build() -> ctypes.CDLL:
-    """Compile (if the source hash changed) and load the kernel library."""
-    global _lib, build_seconds
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _SOURCES:
-        digest.update(src.read_bytes())
-    so = _BUILD_DIR / f"libcost_kernel_{digest.hexdigest()[:16]}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)],
-            check=True,
-        )
-        os.replace(tmp, so)
-        build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    fn = lib.cost_map_tracked_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.POINTER(_CostParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.POINTER(_CostParams), ctypes.c_void_p]
+)
 
 
 def normalize_cost(cost_sum, weight_sum):
@@ -174,35 +132,46 @@ def cost_map_tracked_reference(
     return cost, wsum
 
 
-def _check(name, t, shape, dtypes, device):
+def _check(name, t, shape, dtypes, device, contiguous=True):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
 def _pose_rows(Rs, ts, n):
-    return torch.cat([Rs.reshape(n, 9), ts.reshape(n, 3)], dim=-1).to(torch.float32).cpu()
+    return torch.cat([Rs.reshape(n, 9), ts.reshape(n, 3)], dim=-1)
 
 
-def cost_map_tracked(
-    cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples=None
-):
-    """Raw (cost_sum, weight_sum), each (K, h, w), of the flow arm plus the
-    fused prior arm. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
-    if cands.device.type == "cpu":
-        return cost_map_tracked_reference(
-            cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples
-        )
-    if cands.device.type != "cuda":
-        raise ValueError(f"cost_map_tracked: unsupported device {cands.device}")
-    global cost_kernel_launches
+def accept_reference(depth, cost, costs, cands, masks=None):
+    """Plain per-pixel accept of a scored proposal batch (``em.py:596-610``):
+    masked-out candidates cost +inf; the first argmin over K wins (ties go
+    to the lowest k, and a NaN among the kept costs wins, as in
+    ``jnp.min`` / ``jnp.argmin``); the pixel takes it where its cost is
+    below the current one. Returns new (depth, cost); masks None keeps
+    every candidate."""
+    best_cost = torch.full_like(cost, torch.inf)
+    best_cand = cands[0]
+    for k in range(cands.shape[0]):
+        c = costs[k] if masks is None else torch.where(masks[k], costs[k], torch.inf)
+        take = ~torch.isnan(best_cost) & (torch.isnan(c) | (c < best_cost))
+        best_cost = torch.where(take, c, best_cost)
+        best_cand = torch.where(take, cands[k], best_cand)
+    better = best_cost < cost
+    return torch.where(better, best_cand, depth), torch.where(better, best_cost, cost)
+
+
+def _bind(mode, cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples,
+          masks=None, depth=None, cost=None, out=None):
+    """Check the operands and bind one launch: (C function, its arguments,
+    the pose rows they point to, which must outlive the call)."""
     dev = cands.device
+    if dev.type != "cuda":
+        raise ValueError(f"cost kernel: unsupported device {dev}")
     f32 = (torch.float32,)
     K, h, w = cands.shape
     tx, ty, obx, oby = track
@@ -215,11 +184,9 @@ def cost_map_tracked(
     for name, t in (("tx", tx), ("ty", ty), ("obx", obx), ("oby", oby), ("rigidness", rigidness)):
         _check(name, t, (N, h, w), f32, dev)
     _check("track_inb", track_inb, (N, h, w), (torch.bool, torch.uint8), dev)
-
-    prm = _CostParams()
-    poses = _pose_rows(Rs, ts, N)
-    for f in range(N):
-        prm.poses[f][:] = poses[f].tolist()
+    _check("Rs", Rs, (N, 3, 3), f32, dev, contiguous=False)
+    _check("ts", ts, (N, 3), f32, dev, contiguous=False)
+    poses = [_pose_rows(Rs, ts, N)]
     ps = _prior_stack(prior_samples)
     D = 0
     ptgt = pwgt = None
@@ -230,25 +197,71 @@ def cost_map_tracked(
             raise ValueError(f"cost kernel takes at most {MAX_D} depth priors, got {D}")
         _check("prior target", ptgt, (D, h, w), f32, dev)
         _check("prior weight", pwgt, (D, h, w), f32, dev)
-        pposes = _pose_rows(dp_Rs, dp_ts, D)
-        for d in range(D):
-            prm.pposes[d][:] = pposes[d].tolist()
+        _check("prior Rs", dp_Rs, (D, 3, 3), f32, dev, contiguous=False)
+        _check("prior ts", dp_ts, (D, 3), f32, dev, contiguous=False)
+        poses.append(_pose_rows(dp_Rs, dp_ts, D))
+    if masks is not None:
+        _check("masks", masks, (K, h, w), (torch.bool, torch.uint8), dev)
+    for name, t in (("depth", depth), ("cost", cost)):
+        if t is not None:
+            _check(name, t, (h, w), f32, dev)
+    poses = torch.cat(poses).contiguous()  # stays on the device
+
+    prm = _CostParams()
     prm.fx, prm.fy, prm.cx, prm.cy = p.fx, p.fy, p.cx, p.cy
     prm.lam, prm.arf, prm.bf, prm.omega = p.lam, p.abs_resize_factor, p.basefocal, p.omega
     prm.n_frames, prm.active_n, prm.n_priors, prm.k = N, int(active_n), D, K
     prm.h, prm.w = h, w
 
-    cost = torch.empty((K, h, w), dtype=torch.float32, device=dev)
-    wsum = torch.empty((K, h, w), dtype=torch.float32, device=dev)
-    lib = build()
-    err = lib.cost_map_tracked_launch(
-        cands.data_ptr(), tx.data_ptr(), ty.data_ptr(), obx.data_ptr(),
-        oby.data_ptr(), rigidness.data_ptr(), track_inb.data_ptr(),
-        ptgt.data_ptr() if D else None, pwgt.data_ptr() if D else None,
-        cost.data_ptr(), wsum.data_ptr(), ctypes.byref(prm),
-        torch.cuda.current_stream(dev).cuda_stream,
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = (
+        mode, poses.data_ptr(), cands.data_ptr(), tx.data_ptr(), ty.data_ptr(),
+        obx.data_ptr(), oby.data_ptr(), rigidness.data_ptr(), track_inb.data_ptr(),
+        ptr(ptgt), ptr(pwgt), ptr(masks), ptr(depth), ptr(cost), ptr(out),
+        ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream,
     )
+    return _build.function("cost_kernel_launch", _ARGTYPES), args, poses
+
+
+def _launch(mode, *operands, **kw):
+    fn, args, _poses = _bind(mode, *operands, **kw)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"cost kernel launch failed: cudaError {err}")
+    global cost_kernel_launches, cost_score_launches
     cost_kernel_launches += 1
-    return cost, wsum
+    if mode == _SCORE:
+        cost_score_launches += 1
+
+
+def cost_map_score(cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples=None):
+    """Normalised (K, h, w) cost of the K candidate depth maps: the flow arm
+    (track = (tx, ty, obx, oby), each (N, h, w)) plus the fused prior arm
+    (prior_samples = (target (D,h,w), weight (D,h,w), dp_Rs, dp_ts) or
+    None). CPU tensors take the plain version; CUDA tensors launch the
+    kernel in score mode."""
+    if cands.device.type == "cpu":
+        return normalize_cost(*cost_map_tracked_reference(
+            cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples))
+    out = torch.empty_like(cands)
+    _launch(_SCORE, cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples,
+            out=out)
+    return out
+
+
+def cost_map_accept(depth, cost, cands, masks, track, track_inb, rigidness, Rs, ts, active_n,
+                    p, prior_samples=None):
+    """Score a (K, h, w) proposal batch and accept it per pixel
+    (``accept_reference``'s semantics); masks: (K, h, w) bool, or None for
+    all kept. Returns (depth, cost). CPU tensors compose the plain versions
+    and return new tensors; CUDA tensors launch the kernel in accept mode,
+    which updates ``depth`` and ``cost`` in place and returns them."""
+    if cands.device.type == "cpu":
+        costs = normalize_cost(*cost_map_tracked_reference(
+            cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples))
+        return accept_reference(depth, cost, costs, cands, masks)
+    _launch(_ACCEPT, cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples,
+            masks=masks, depth=depth, cost=cost)
+    return depth, cost

@@ -7,23 +7,23 @@ covisibility scores. Computing them on the device, beside the solve, lets
 the host learn vo_step from a few scalars instead of reading the dense
 depth map back first.
 
-The scores are those of the host gate ``slam/slam_utils.py:
-eval_covisibility``: the same strided grid, a strict in-bounds test for
-visibility, the closed range for the half-resolution coverage histogram,
-the host's denominators and its harmonic mean. Masking is by zero weights
-instead of boolean indexing, and the N chain transforms are broadcast
-instead of vmapped.
+The scores follow the JAX version: the same strided grid, a strict
+in-bounds test for visibility, the closed range for the half-resolution
+coverage histogram, visibility over the strided grid's size
+``ceil(h / stride) * ceil(w / stride)`` and the harmonic mean over
+``max(visibility + coverage, 1e-12)`` (``voldor_tpu/ops/covis.py:65-66,
+87-89``). Masking is by zero weights instead of boolean indexing, and the
+N chain transforms are broadcast instead of vmapped.
 
-Two departures from the JAX version, both to agree with the host gate:
-* the visibility denominator is ``(h // stride) * (w // stride)`` and the
-  harmonic mean divides by ``max(visibility + coverage, 1)``, as the host
-  gate does (``voldor_tpu/ops/covis.py:66`` divides by the grid size
-  ``ceil(h / stride) * ceil(w / stride)`` and by ``max(v + c, 1e-12)``,
-  which differ whenever h or w is not a multiple of the stride, as at
-  185 x 613);
-* the rigid transform and the projection run in float64, as the host gate
-  computes them, so that a projection landing on a bin or image edge
-  falls on the same side as on the host.
+The host gate ``slam/slam_utils.py:eval_covisibility`` divides by
+``(h // stride) * (w // stride)`` and by ``max(v + c, 1)`` instead; off the
+stride grid (185 x 613, say) its scores differ from these, as the JAX
+package's do.
+
+The rigid transform and the projection run in float64, so that a
+projection landing on a bin or image edge falls on the same side on the
+card and on the CPU; the scores still agree with the JAX package's float32
+ones to 1e-5 (``tests/test_torch_covis.py``).
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ def _covis_many(pts0, w_mask, R, t, K, h: int, w: int, stride: int):
     p = proj[..., :2] / torch.where(zpos, z, 1.0)[..., None]
     px, py = p[..., 0], p[..., 1]
     inb = (px > 0) & (px < w) & (py > 0) & (py < h)
-    visibility = (w_mask * zpos * inb).sum(-1) / ((w // stride) * (h // stride))
+    visibility = (w_mask * zpos * inb).sum(-1) / pts0.shape[0]
 
     # half-resolution coverage histogram (bins with any weighted hit); the
     # host's histogram2d keeps 0 <= p <= w, its closed right edge falling
@@ -84,7 +84,7 @@ def _covis_many(pts0, w_mask, R, t, K, h: int, w: int, stride: int):
     hist = torch.zeros(n * nbx * nby, dtype=torch.float64, device=pts0.device)
     hist.index_add_(0, idx.reshape(-1), wcov.reshape(-1).double())
     coverage = (hist.reshape(n, -1) > 0).sum(-1) / (nbx * nby)
-    return 2 * (visibility * coverage) / torch.clamp_min(visibility + coverage, 1.0)
+    return 2 * (visibility * coverage) / torch.clamp_min(visibility + coverage, 1e-12)
 
 
 def _grid(depth, conf, K, conf_thresh: float, stride: int):

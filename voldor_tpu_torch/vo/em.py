@@ -322,24 +322,22 @@ def optimize_depth(
 
 
 def optimize_depth_batched(
-    depth, cost, batch_cost_fn, u, *, global_prop_step: int = 8,
+    depth, cost, accept_fn, u, *, global_prop_step: int = 8,
     local_prop_width: int = 32, range_factor: float = 1.0,
 ):
     """Batched-proposal depth update (``em.py:573``): each proposal family
-    is scored in ONE ``batch_cost_fn((K, h, w)) -> (K, h, w)`` call and
-    accepted by per-pixel argmin. ``u``: (n_rand, h, w) uniforms."""
+    is scored and accepted by per-pixel argmin in ONE
+    ``accept_fn(depth, cost, cands (K, h, w), masks (K, h, w) bool or None)
+    -> (depth, cost)`` call (``ops/cost.py:cost_map_accept``; masks None
+    keeps every candidate). ``u``: (n_rand, h, w) uniforms. ``accept_fn``
+    may update depth and cost in place: the round works on copies, so the
+    caller's tensors are left as they were."""
     h, w = depth.shape
-
-    def accept_batch(depth, cost, cands, masks):
-        costs = torch.where(masks, batch_cost_fn(cands), torch.inf)
-        best_cost, k_best = torch.min(costs, dim=0)
-        best_cand = torch.gather(cands, 0, k_best[None])[0]
-        better = best_cost < cost
-        return torch.where(better, best_cand, depth), torch.where(better, best_cost, cost)
+    depth, cost = depth.clone(), cost.clone()
 
     if u.shape[0] > 0:
         cands = 1.0 / (range_factor * u + 1.0 / MAXIMUM_DEPTH)
-        depth, cost = accept_batch(depth, cost, cands, torch.ones_like(cands, dtype=torch.bool))
+        depth, cost = accept_fn(depth, cost, cands, None)
 
     if global_prop_step > 0:
         cands, masks = [], []
@@ -347,7 +345,7 @@ def optimize_depth_batched(
             cand, valid = _shift_depth(depth, dy, dx)
             cands.append(cand)
             masks.append(valid & _global_mask(h, w, along_x, start_hi, global_prop_step, depth.device))
-        depth, cost = accept_batch(depth, cost, torch.stack(cands), torch.stack(masks))
+        depth, cost = accept_fn(depth, cost, torch.stack(cands), torch.stack(masks))
 
     for o in _jump_offsets(local_prop_width):
         cands, masks = [], []
@@ -355,5 +353,5 @@ def optimize_depth_batched(
             cand, valid = _shift_depth(depth, sy * o, sx * o)
             cands.append(cand)
             masks.append(valid)
-        depth, cost = accept_batch(depth, cost, torch.stack(cands), torch.stack(masks))
+        depth, cost = accept_fn(depth, cost, torch.stack(cands), torch.stack(masks))
     return depth, cost

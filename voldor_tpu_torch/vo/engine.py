@@ -10,9 +10,11 @@ confidence refresh, and the mono world-scale normalisation. Loop conditions
 are host values (window size, iteration counters, the pose-convergence
 scalar read once per iteration).
 
-Every flow-fed depth round takes the batched proposal path scored by the
-hand-written CUDA cost kernel (``ops/cost.py``) when the cost mode is
-'tracked' or 'anchored'; on CPU tensors the kernel's plain version runs.
+Every flow-fed depth round takes the batched proposal path, scored and
+accepted by the hand-written CUDA cost kernel (``ops/cost.py``) when the
+cost mode is 'tracked' or 'anchored', and smooths its weights with the
+hand-written fb_smooth kernel (``ops/fb_smooth.py``); on CPU tensors the
+kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from voldor_tpu_torch.config import VoldorConfig
 from voldor_tpu_torch.ops import epipolar, lie
-from voldor_tpu_torch.ops.cost import cost_map_tracked, normalize_cost
+from voldor_tpu_torch.ops.cost import cost_map_accept, cost_map_score
 from voldor_tpu_torch.ops.fb_smooth import fb_smooth
 from voldor_tpu_torch.vo import em
 from voldor_tpu_torch.vo.pose_step import _cameras_window_core, _cameras_window_jacobi_core
@@ -51,7 +53,8 @@ def _depth_round_core(
     weights, proposal rounds, then the rigidness refresh.
 
     u: the (n_rand, h, w) proposal uniforms. Flow-fed tracked/anchored
-    rounds score proposals in batches through the cost kernel; prior-only
+    rounds score and accept proposals in batches through the cost kernel
+    (the initial cost in score mode, every batch in accept mode); prior-only
     rounds accept one proposal map at a time (``em.optimize_depth``,
     'jump'). Returns (depth, rigidness, dp_confs) or, when anchored,
     (depth, rigidness, dp_confs, track, tinb).
@@ -89,16 +92,14 @@ def _depth_round_core(
             )
 
         if use_flows:
-            def batch_cost_fn(cands):
-                cs, ws = cost_map_tracked(
-                    cands, track, tinb, rigidness, Rs, ts, active_n, params,
-                    prior_samples=pr_samples,
-                )
-                return normalize_cost(cs, ws)
+            planes = (track, tinb, rigidness, Rs, ts, active_n, params)
 
-            cost = batch_cost_fn(depth[None])[0]
+            def accept_fn(depth, cost, cands, masks):
+                return cost_map_accept(depth, cost, cands, masks, *planes, prior_samples=pr_samples)
+
+            cost = cost_map_score(depth[None], *planes, prior_samples=pr_samples)[0]
             depth, cost = em.optimize_depth_batched(
-                depth, cost, batch_cost_fn, u, global_prop_step=gstep,
+                depth, cost, accept_fn, u, global_prop_step=gstep,
                 local_prop_width=lwidth, range_factor=range_factor,
             )
         else:
