@@ -9,10 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    prints the card's name and power limit from nvidia-smi;
 2. build: compiles every hand-written kernel source
    (voldor_tpu_torch/csrc/*.cu, one nvcc each, in parallel) into one
-   library in voldor_tpu_torch/_build/, and, beside it, the earlier raw-sum
-   design of the cost kernel (tools/cost_kernel_raw_sums.cu) as a timing
-   yardstick; prints ptxas's registers and the SASS instruction count of
-   every kernel;
+   library in voldor_tpu_torch/_build/; prints ptxas's registers and the
+   SASS instruction count of every kernel;
 3. fb_smooth vs plain: the kernel against fb_smooth_reference on the card
    at (M, 185, 613), M in {5, 3, 2, 1}, on the bench scene's rigidness
    maps: max abs error within 1e-5;
@@ -22,14 +20,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    identical +inf pattern, finite values within rtol = atol = 1e-5;
 5. cost kernel, accept mode vs plain: a random (K=10), a global (K=4) and a
    jump (K=4) proposal batch at N=5, D=2: the accepted depth equals the
-   plain composition's at >= 99.9% of pixels, and at every other pixel the
-   two picks' plain costs agree within 1e-5 relative (a near-tie);
+   plain composition's at >= 99.9% of pixels; the written cost equals the
+   plain one (+inf pattern identical, within 1e-5 + 1e-5 relative) where
+   the depths agree, and everywhere the plain cost of the kernel's own
+   pick, which at a differing pixel is within 1e-5 relative of the plain
+   pick's (a near-tie);
 6. device-only times (CUDA events around 100 back-to-back launches of the
-   bound C call, no wrapper in between) of the fb_smooth kernel, the cost
-   kernel in accept and score mode and the raw-sum yardstick at K = 1, 4,
-   10, beside their plain versions and their bounds (bytes over 3.35 TB/s,
-   operations over the FP32 issue rate; the cost kernel's operations are
-   estimated from its SASS and the Fisk terms this run's data evaluates);
+   bound C call, no wrapper in between) of the fb_smooth kernel and the
+   cost kernel in accept and score mode at K = 1, 4, 10, beside their
+   plain versions and their bounds: the larger of the bytes over 3.35 TB/s
+   and the least operations of the function on this run's data (counted
+   from its plain formula, see least_ops) over the peak FP32 and
+   special-function rates; and fb_smooth's serial floor, the latency of
+   one forward and one backward step (timed on one thread) times h + w;
 7. the VO windows: three consecutive 5-flow mono VO windows of the bench
    scene (613x185, seed 7) through voldor_tpu_torch's VO entry point on the
    card, with 0, 1 and 2 depth priors and the SLAM layer's constant-velocity
@@ -87,8 +90,53 @@ COVIS_TOL = 1e-5
 FB_EMM, FB_NCP = 0.5, 0.9  # the shipped fb_emm / fb_no_change_prob
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_INSTR_PER_S = 67e12 / 2  # FP32 issue rate: 67 TFLOP/s counts an FMA as 2
+# special-function units (reciprocal, rsqrt, log2, exp2): 16 results per
+# clock per SM against 128 FP32 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0)
+SFU_PER_S = FP32_INSTR_PER_S / 8
 N_LAUNCH = 100  # back-to-back launches per device-only timing
-YARDSTICK = ROOT / "tools" / "cost_kernel_raw_sums.cu"
+
+
+def least_ops(fp32, div=0, sqrt=0, log=0, exp=0, pow=0):
+    """(FP32 instructions, special-function ops) of a piece of a formula at
+    their least: a division or square root is a reciprocal (root) estimate
+    and three FP32 instructions (a product and one Newton correction), a log
+    or exp one special-function op and a scaling product, a pow a log2, a
+    product and an exp2. Add, multiply, min, max and compare-select are one
+    FP32 instruction each."""
+    return fp32 + 3 * (div + sqrt) + log + exp + pow, div + sqrt + log + exp + 2 * pow
+
+
+# The cost function's pieces (voldor_tpu_torch/ops/cost.py's plain version:
+# the flow arm, the prior arm, normalize_cost, accept_reference), counted
+# from the formula in its operation order:
+COST_PIECES = {
+    # per pixel and candidate: back-projection (2), normalisation (div and
+    # two compare-selects), mask and argmin step (5)
+    "cands": least_ops(11, div=1),
+    # per candidate and window frame: the point moved on (9 mul, 9 add) and
+    # its nz > 0 test
+    "chain": least_ops(19),
+    # per pixel and window frame: |observed flow| (3, sqrt, div), its Fisk
+    # shape and scale (clamp 3, lam 1, c 2, s 2 + exp) and outlier density
+    "flow_px": least_ops(19, div=4, sqrt=1, exp=1, pow=2),
+    # per evaluated flow term: safe nz (2), projection (6 + 2 div), residual
+    # (4), its norm (3, sqrt, div), Fisk density (8, 3 div, 2 pow), ratio (1,
+    # div), -rig * log(max(r, 1e-30)) summed (3, log), weight sum (1)
+    "flow": least_ops(28, div=7, sqrt=1, pow=2, log=1),
+    # per pixel and prior with a target: its disparity (1, 2 div) and Fisk
+    # model (lam 1, clamp 3, c 2, s 2 + exp, outlier density 8, 3 div, 2 pow)
+    "prior_px": least_ops(17, div=5, exp=1, pow=2),
+    # per candidate at such a pixel: the frame-0 point's depth in the prior
+    # camera (8) and its nz > 0 test
+    "prior_cands": least_ops(9),
+    # per evaluated prior term: disparity (1, 2 div), |difference| (1), Fisk
+    # density (8, 3 div, 2 pow), ratio (1, div), log sum (3, log), weight (1)
+    "prior": least_ops(15, div=6, pow=2, log=1),
+}
+# fb_smooth per element and direction: forward step (11, div), backward step
+# (13, div), posterior (7, div)
+FB_PIECE = least_ops(31, div=3)
 
 
 def log(*a):
@@ -139,58 +187,25 @@ def build_scene(np, torch, n_flows):
     return K, planes, poses, flows, depth0, Ts, r2R
 
 
-class _RawSumsParams(ctypes.Structure):
-    """The yardstick kernel's by-value parameters (tools/cost_kernel_raw_sums.cu)."""
-
-    _fields_ = [
-        ("poses", (ctypes.c_float * 12) * 8),
-        ("pposes", (ctypes.c_float * 12) * 4),
-        ("fx", ctypes.c_float), ("fy", ctypes.c_float),
-        ("cx", ctypes.c_float), ("cy", ctypes.c_float),
-        ("lam", ctypes.c_float), ("arf", ctypes.c_float),
-        ("bf", ctypes.c_float), ("omega", ctypes.c_float),
-        ("n_frames", ctypes.c_int), ("active_n", ctypes.c_int),
-        ("n_priors", ctypes.c_int), ("k", ctypes.c_int),
-        ("h", ctypes.c_int), ("w", ctypes.c_int),
-    ]
-
-
 def phase_build():
-    """The package's kernels (one nvcc per source, in parallel) and the
-    yardstick, started together. Returns the yardstick's C function."""
+    """The package's kernels: one nvcc per source, in parallel."""
     from voldor_tpu_torch.ops import _build
 
-    so = _build.BUILD_DIR / "libcost_kernel_raw_sums.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    yard = subprocess.Popen(
-        [_build.nvcc(), *(f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")),
-         "-shared", "-o", str(so), str(YARDSTICK)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
     _build.build()
-    out, _ = yard.communicate()
-    if yard.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {YARDSTICK.name}:\n{out}")
     log(f"[build] {len(_build.sources())} sources -> {_build.library_path().name}: nvcc "
-        f"{' '.join(_build.NVCC_FLAGS)}; {_build.build_seconds or 0.0:.2f} s build "
-        f"(wall {time.perf_counter() - t0:.2f} s with the yardstick)")
+        f"{' '.join(_build.NVCC_FLAGS)}; {_build.build_seconds or 0.0:.2f} s build")
     report = _build.ptxas_report()
     for fn, spill, regs in re.findall(
             r"Function properties for (\S+)\n.*?(\d+) bytes spill stores.*?Used (\d+) registers",
             report, re.S):
         log(f"[build] ptxas {short_name(fn)}: {regs} registers, {spill} bytes spilled")
-    fn = ctypes.CDLL(str(so)).cost_map_tracked_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.POINTER(_RawSumsParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def short_name(mangled):
     m = re.search(r"cost_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return f"cost_kernel<KT={m.group(1)}, {'accept' if m.group(2) == '1' else 'score'}>"
-    m = re.search(r"(fb_rows_kernel|fb_cols_kernel)", mangled)
+    m = re.search(r"(fb_rows_kernel|fb_cols_kernel|fb_chain_probe_kernel)", mangled)
     return m.group(1) if m else mangled
 
 
@@ -368,38 +383,68 @@ def phase_accept(np, torch, bi):
         a, b = pick_cost[diff], c_ref[diff]
         near = torch.abs(a - b) <= 1e-5 * torch.maximum(torch.abs(a), torch.abs(b)) + 1e-7
         rel = float((torch.abs(a - b) / torch.clamp_min(torch.abs(b), 1e-30)).max()) if a.numel() else 0.0
+        # the written cost: the plain one where the depths agree, the plain
+        # cost of the kernel's own pick everywhere
+        inf_same = torch.equal(torch.isinf(c_k[same]), torch.isinf(c_ref[same]))
+        cost_same = int((~close(c_k[same], c_ref[same])).sum())
+        cost_pick = int((~close(c_k, pick_cost)).sum())
+        fin = torch.isfinite(c_k) & torch.isfinite(c_ref) & same
+        err = float(torch.abs(c_k[fin] - c_ref[fin]).max()) if bool(fin.any()) else 0.0
         log(f"[accept] {name} K={cands.shape[0]}: same depth at {frac:.6f} of pixels "
             f"({int(diff.sum())} differ, accepted {int((d_ref != depth).sum())} plain / "
             f"{int((d_k != depth).sum())} kernel), largest relative cost gap at a "
-            f"difference {rel:.3e}")
+            f"difference {rel:.3e}; written cost vs plain where the depths agree: +inf "
+            f"pattern identical {inf_same}, max abs err {err:.3e}, out-of-tol {cost_same}; "
+            f"vs the plain cost of the kernel's pick: out-of-tol {cost_pick}")
         if frac < 0.999 or not bool(near.all()):
             raise AssertionError(f"accept mode disagrees with the plain composition ({name})")
+        if not inf_same or cost_same or cost_pick:
+            raise AssertionError(f"accept mode writes a cost that disagrees with the plain one ({name})")
     return worst
 
 
-def count_terms(torch, cands, tinb, Rs, ts, active_n, p, ps):
-    """Fisk terms the kernel evaluates on these inputs: (flow, prior)."""
+def close(a, b):
+    """Equal (+inf to +inf), within ATOL + RTOL * |b| of a finite b, or both NaN."""
+    near = ((a - b).abs() <= ATOL + RTOL * b.abs()) & b.isfinite()
+    return (a == b) | near | (a.isnan() & b.isnan())
+
+
+def count_pieces(torch, cands, tinb, Rs, ts, active_n, p, ps):
+    """How many times the cost function evaluates each of COST_PIECES on
+    these inputs (the Fisk terms where a point lies in front of the camera,
+    the prior terms where the prior has a target)."""
     from voldor_tpu_torch.ops import fisk
 
+    K = cands.shape[0]
     ys, xs = torch.meshgrid(torch.arange(H, device=cands.device),
                             torch.arange(W, device=cands.device), indexing="ij")
     bx = fisk.div_scalar(xs.float() - p.cx, p.fx)
     by = fisk.div_scalar(ys.float() - p.cy, p.fy)
     ox, oy, oz = bx * cands, by * cands, cands
-    flow = 0
+    n = dict(cands=K * H * W, chain=K * active_n * H * W, flow_px=active_n * H * W,
+             flow=0, prior_px=0, prior_cands=0, prior=0)
     for f in range(active_n):
         R, t = Rs[f], ts[f]
         ox, oy, oz = (R[0, 0] * ox + R[0, 1] * oy + R[0, 2] * oz + t[0],
                       R[1, 0] * ox + R[1, 1] * oy + R[1, 2] * oz + t[1],
                       R[2, 0] * ox + R[2, 1] * oy + R[2, 2] * oz + t[2])
-        flow += int((tinb[f] & (oz > 0)).sum())
-    prior = 0
+        n["flow"] += int((tinb[f] & (oz > 0)).sum())
     if ps is not None:
         tgt, wgt, dRs, dts = ps
         for d in range(tgt.shape[0]):
+            has = (tgt[d] > 0) & (wgt[d] > 0)
             nz = dRs[d, 2, 0] * (bx * cands) + dRs[d, 2, 1] * (by * cands) + dRs[d, 2, 2] * cands + dts[d, 2]
-            prior += int(((tgt[d] > 0) & (wgt[d] > 0) & (nz > 0)).sum())
-    return flow, prior
+            n["prior_px"] += int(has.sum())
+            n["prior"] += int((has & (nz > 0)).sum())
+        n["prior_cands"] = K * n["prior_px"]
+    return n
+
+
+def ops_ms(counts, pieces):
+    """(FP32 ms, special-function ms) of the counted pieces at peak rate."""
+    fp32 = sum(counts[k] * pieces[k][0] for k in counts)
+    sfu = sum(counts[k] * pieces[k][1] for k in counts)
+    return fp32 / FP32_INSTR_PER_S * 1e3, sfu / SFU_PER_S * 1e3
 
 
 def device_ms(torch, launch, n=N_LAUNCH):
@@ -433,9 +478,31 @@ def checked(err, what):
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def phase_times(np, torch, bi, yard_fn, sass):
-    """Device-only times of both kernels and the yardstick, their plain
-    versions' times and their bounds. Returns the kernels' records."""
+def chain_floor_ms(torch):
+    """fb_smooth's serial floor at h x w: one forward and one backward step
+    timed on one thread (5e5 of each), times h + w (each row walks w of
+    both, each column h). Returns (floor ms, ns per step pair)."""
+    from voldor_tpu_torch.ops import _build
+    from voldor_tpu_torch.ops import fb_smooth as fb
+
+    fn = _build.function("fb_chain_probe_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    e = torch.tensor([0.7, 0.6], device="cuda")
+    out = torch.empty(1, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    consts = fb._constants(FB_EMM, FB_NCP)
+    n = 500_000
+    checked(fn(e.data_ptr(), out.data_ptr(), 1000, *consts, stream), "chain probe")
+    ms = event_ms(torch, lambda: checked(fn(e.data_ptr(), out.data_ptr(), n, *consts, stream),
+                                          "chain probe"), 3)
+    if not 0.0 < float(out) < 1.0:
+        raise AssertionError(f"chain probe left {float(out)}, not a probability")
+    return ms / n * (H + W), ms / n * 1e6
+
+
+def phase_times(np, torch, bi, sass):
+    """Device-only times of both kernels, their plain versions' times and
+    their bounds. Returns the kernels' records."""
     from voldor_tpu_torch.ops import _build
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import fb_smooth as fb
@@ -460,18 +527,20 @@ def phase_times(np, torch, bi, yard_fn, sass):
     kern = device_ms(torch, lambda: fb.fb_smooth(x5, FB_EMM, FB_NCP))
     plain2 = event_ms(torch, lambda: fb.fb_smooth_reference(x5, FB_EMM, FB_NCP), 3)
     fb_bytes = 2 * 4 * WINDOW * px
-    fb_ops = 60 * WINDOW * px  # per element: 2 passes x (fwd 11 + bwd 12 + posterior 7)
-    fb_bound = max(fb_bytes / HBM_BYTES_PER_S, fb_ops / FP32_INSTR_PER_S) * 1e3
-    chain = 2 * (W + H)
+    fb_fp32, fb_sfu = ops_ms({"el": 2 * WINDOW * px}, {"el": FB_PIECE})
+    fb_by_bytes = fb_bytes / HBM_BYTES_PER_S * 1e3
+    fb_bound = max(fb_by_bytes, fb_fp32, fb_sfu)
+    chain_ms, pair_ns = chain_floor_ms(torch)
     log(f"[times] fb_smooth M=5 {H}x{W}: device {fb_rec[5]:.4f} ms per call ({N_LAUNCH} "
         f"launches; M=2 {fb_rec[2]:.4f} ms; through the wrapper {kern:.4f} ms), plain "
-        f"{plain1:.4f} / {plain2:.4f} ms (order plain, kernel, plain); bound {fb_bound * 1e3:.3f} us "
-        f"by bytes ({fb_bytes} B; {fb_ops} operations), but the serial chain is {chain} "
-        f"dependent steps per (row, column) pair")
+        f"{plain1:.4f} / {plain2:.4f} ms (order plain, kernel, plain); bound "
+        f"{fb_bound * 1e3:.3f} us (bytes {fb_by_bytes * 1e3:.3f} us for {fb_bytes} B, FP32 "
+        f"{fb_fp32 * 1e3:.3f} us, special-function {fb_sfu * 1e3:.3f} us); serial floor "
+        f"{chain_ms * 1e3:.3f} us ({H + W} forward + backward step pairs at {pair_ns:.3f} ns "
+        f"each, timed on one thread)")
 
-    # the cost kernel: accept and score mode, and the raw-sum yardstick
+    # the cost kernel in accept and score mode
     slope = (sass["cost_kernel<KT=10, accept>"] - sass["cost_kernel<KT=4, accept>"]) / 6
-    per_term = slope / 2  # one flow and one prior term per candidate in the unrolled body
     D = ps[0].shape[0]
     cost_rec = {}
     for k in (1, 4, 10):
@@ -482,37 +551,29 @@ def phase_times(np, torch, bi, yard_fn, sass):
         acc_fn, acc_args, _k1 = cost_mod._bind(cost_mod._ACCEPT, cands, *planes, ps,
                                               depth=depth, cost=cost)
         sc_fn, sc_args, _k2 = cost_mod._bind(cost_mod._SCORE, cands, *planes, ps, out=out)
-        yard = yardstick_call(torch, yard_fn, cands, planes, ps, stream)
-        runs = {"yardstick": [], "score": [], "accept": []}
-        for order in (("yardstick", "score", "accept"), ("accept", "score", "yardstick")):
+        runs = {"score": [], "accept": []}
+        for order in (("score", "accept"), ("accept", "score")):
             for name in order:
-                if name == "yardstick":
-                    runs[name].append(device_ms(torch, lambda: checked(yard(), "yardstick")))
-                elif name == "score":
-                    runs[name].append(device_ms(torch, lambda: checked(sc_fn(*sc_args), "score")))
-                else:
-                    runs[name].append(device_ms(torch, lambda: checked(acc_fn(*acc_args), "accept")))
-        flow, prior = count_terms(torch, cands, tinb, Rs, ts, WINDOW, p, ps)
-        ops = (flow + prior) * per_term
+                fn, args = (sc_fn, sc_args) if name == "score" else (acc_fn, acc_args)
+                runs[name].append(device_ms(torch, lambda: checked(fn(*args), name)))
+        n = count_pieces(torch, cands, tinb, Rs, ts, WINDOW, p, ps)
+        fp32_ms, sfu_ms = ops_ms(n, COST_PIECES)
         in_bytes = px * (4 * k + WINDOW * (5 * 4 + 1) + D * 8)
-        bounds = {
-            "accept": max((in_bytes + px * 16) / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S) * 1e3,
-            "score": max((in_bytes + px * 4 * k) / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S) * 1e3,
-            "yardstick": max((in_bytes + px * 8 * k) / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S) * 1e3,
-        }
-        by_bytes = {n: (in_bytes + px * o) / HBM_BYTES_PER_S * 1e3
-                    for n, o in (("accept", 16), ("score", 4 * k), ("yardstick", 8 * k))}
-        cost_rec[k] = {n: min(v) for n, v in runs.items()}
+        by_bytes = {"accept": (in_bytes + px * 16) / HBM_BYTES_PER_S * 1e3,
+                    "score": (in_bytes + px * 4 * k) / HBM_BYTES_PER_S * 1e3}
+        bounds = {m: max(b, fp32_ms, sfu_ms) for m, b in by_bytes.items()}
+        sass_ms = (n["flow"] + n["prior"]) * slope / 2 / FP32_INSTR_PER_S * 1e3
+        cost_rec[k] = {m: min(v) for m, v in runs.items()}
         log(f"[times] cost K={k} N={WINDOW} D={D}: device ms per launch (min of two rounds of "
-            f"{N_LAUNCH}) accept {runs['accept']}, score {runs['score']}, raw-sum yardstick "
-            f"{runs['yardstick']}; Fisk terms evaluated {flow} flow + {prior} prior, "
-            f"~{per_term:.0f} SASS instructions each -> {ops:.4g} instructions, "
-            f"{ops / FP32_INSTR_PER_S * 1e6:.2f} us at the FP32 issue rate; bytes bound "
-            f"accept {by_bytes['accept'] * 1e3:.2f} us, score {by_bytes['score'] * 1e3:.2f} us, "
-            f"yardstick {by_bytes['yardstick'] * 1e3:.2f} us; bound (larger) accept "
-            f"{bounds['accept'] * 1e3:.2f} us")
+            f"{N_LAUNCH}) accept {runs['accept']}, score {runs['score']}; evaluated {n}; least "
+            f"operations FP32 {fp32_ms * 1e3:.2f} us, special-function {sfu_ms * 1e3:.2f} us; "
+            f"bytes accept {by_bytes['accept'] * 1e3:.2f} us, score {by_bytes['score'] * 1e3:.2f} "
+            f"us; bound (largest) accept {bounds['accept'] * 1e3:.2f} us, score "
+            f"{bounds['score'] * 1e3:.2f} us. Static-SASS estimate of this implementation's "
+            f"work (not a bound): ~{slope / 2:.0f} instructions per term, "
+            f"{sass_ms * 1e3:.2f} us at the FP32 issue rate")
         cost_rec[k]["bound"] = bounds
-        cost_rec[k]["bound_by"] = "operations" if ops / FP32_INSTR_PER_S * 1e3 > by_bytes["accept"] else "bytes"
+        cost_rec[k]["bound_by"] = "operations" if max(fp32_ms, sfu_ms) > by_bytes["accept"] else "bytes"
 
     # the plain composition the kernel's accept replaces, at K = 10
     cands = bi["cands_all"]
@@ -528,42 +589,14 @@ def phase_times(np, torch, bi, yard_fn, sass):
     pa2 = event_ms(torch, plain_accept, 10)
     log(f"[times] cost accept K=10: plain composition {pa1:.4f} / {pa2:.4f} ms, kernel through "
         f"the wrapper {wrap:.4f} ms per call ({N_LAUNCH} calls; order plain, kernel, plain)")
-    fb_record = dict(ms=fb_rec[5], plain_ms=min(plain1, plain2), bound_ms=fb_bound, bound_by="bytes",
-                     ms_m2=fb_rec[2], serial_steps=chain)
+    fb_record = dict(ms=fb_rec[5], plain_ms=min(plain1, plain2), bound_ms=fb_bound,
+                     bound_by="bytes" if fb_by_bytes >= max(fb_fp32, fb_sfu) else "operations",
+                     ms_m2=fb_rec[2], chain_floor_ms=chain_ms, chain_step_pair_ns=pair_ns)
     c10 = cost_rec[10]
     cost_record = dict(ms=c10["accept"], plain_ms=min(pa1, pa2), bound_ms=c10["bound"]["accept"],
-                       bound_by=c10["bound_by"], score_ms=c10["score"], yardstick_ms=c10["yardstick"],
-                       ms_by_k={k: {n: v for n, v in r.items() if n in ("accept", "score", "yardstick")}
-                                for k, r in cost_rec.items()})
+                       bound_by=c10["bound_by"], score_ms=c10["score"],
+                       ms_by_k={k: {m: r[m] for m in ("accept", "score")} for k, r in cost_rec.items()})
     return fb_record, cost_record
-
-
-def yardstick_call(torch, fn, cands, planes, ps, stream):
-    """The raw-sum yardstick bound to the same operands, poses by value."""
-    track, tinb, rig, Rs, ts, active_n, p = planes
-    K = cands.shape[0]
-    N = Rs.shape[0]
-    prm = _RawSumsParams()
-    rows = torch.cat([Rs.reshape(N, 9), ts.reshape(N, 3)], -1).cpu()
-    for f in range(N):
-        prm.poses[f][:] = rows[f].tolist()
-    tgt, wgt, dRs, dts = ps
-    D = tgt.shape[0]
-    prow = torch.cat([dRs.reshape(D, 9), dts.reshape(D, 3)], -1).cpu()
-    for d in range(D):
-        prm.pposes[d][:] = prow[d].tolist()
-    prm.fx, prm.fy, prm.cx, prm.cy = p.fx, p.fy, p.cx, p.cy
-    prm.lam, prm.arf, prm.bf, prm.omega = p.lam, p.abs_resize_factor, p.basefocal, p.omega
-    prm.n_frames, prm.active_n, prm.n_priors, prm.k, prm.h, prm.w = N, active_n, D, K, H, W
-    cs, ws = torch.empty_like(cands), torch.empty_like(cands)
-    keep = (cs, ws, prm)
-    args = (cands.data_ptr(), *(t.data_ptr() for t in track), rig.data_ptr(), tinb.data_ptr(), tgt.data_ptr(), wgt.data_ptr(), cs.data_ptr(),
-            ws.data_ptr(), ctypes.byref(prm), stream)
-
-    def call(keep=keep):
-        return fn(*args)
-
-    return call
 
 
 def run_sequence(np, torch, scene, check=False):
@@ -835,7 +868,7 @@ def main():
     from voldor_tpu_torch.utils.evaluation import ate_rmse
     from voldor_tpu_torch.vo import engine as engine_mod
 
-    yard_fn = phase_build()
+    phase_build()
     sass = sass_counts()
 
     # the bench's 24-flow scene; the VO windows take its first 15 flows
@@ -845,7 +878,7 @@ def main():
     fb_err = phase_fb(np, torch, bi)
     score_err = phase_score(np, torch, bi)
     accept_frac = phase_accept(np, torch, bi)
-    fb_rec, cost_rec = phase_times(np, torch, bi, yard_fn, sass)
+    fb_rec, cost_rec = phase_times(np, torch, bi, sass)
 
     # the slice, counted: every launch from here on is the main path's
     reset_counts()
@@ -923,8 +956,9 @@ def main():
             "bound_us": fb_rec["bound_ms"] * 1e3,
             "bound_by": fb_rec["bound_by"],
             "library_ms": None,
+            "chain_floor_us": fb_rec["chain_floor_ms"] * 1e3,
+            "chain_step_pair_ns": fb_rec["chain_step_pair_ns"],
             "ms_m2": fb_rec["ms_m2"],
-            "serial_steps": fb_rec["serial_steps"],
         },
         {
             "name": "cost_map_tracked",
@@ -942,7 +976,6 @@ def main():
             "bound_by": cost_rec["bound_by"],
             "library_ms": None,
             "score_ms": cost_rec["score_ms"],
-            "raw_sums_yardstick_ms": cost_rec["yardstick_ms"],
             "ms_by_k": cost_rec["ms_by_k"],
         },
     ]}))

@@ -18,9 +18,11 @@
 // K candidates, depth and cost, 6 planes per active window frame (track
 // x/y, observed flow x/y, rigidness, in-bounds byte), 2 per prior and the
 // masks, and writes 8 bytes (~180 B at K=10, N=5, D=2: ~6 us at 3.35 TB/s).
-// Each of the K * (N + D) Fisk terms is two IEEE powf, a logf and four
-// IEEE divisions, hundreds of instructions, so the instruction count, not
-// the bytes, sets the floor (chip_smoke.py reports both from the SASS).
+// Each of the K * (N + D) Fisk terms needs two powf, a logf, a sqrtf and
+// seven divisions: even counted at one special-function op each, the
+// operations, not the bytes, set the floor (~26 us at K=10 on an H100;
+// chip_smoke.py counts them from the plain formula). The IEEE versions
+// are longer sequences.
 //
 // Design: consecutive threads on consecutive pixels (coalesced). The
 // thread keeps its K candidates, their K chained 3-D points and K

@@ -12,9 +12,10 @@
 // What bounds it on the card: the recurrence is sequential along a line,
 // 2 * w dependent steps per row and 2 * h per column, each ending in an IEEE
 // division. The bytes (the stack read once, the result written once) take
-// ~1.4 us at M = 5, 185 x 613; the dependence chain takes far longer, so it
-// is the chain, not memory, that sets the floor. Every line runs on its own
-// thread, so all lines walk their chains at once.
+// ~1.4 us at M = 5, 185 x 613; the dependence chain takes far longer (~54 us
+// on an H100, timed by fb_chain_probe_kernel), so it is the chain, not
+// memory, that sets the floor. Every line runs on its own thread, so all
+// lines walk their chains at once.
 //
 // Design: two launches.
 // * Rows: a block loads a tile of R rows coalesced into shared memory; one
@@ -34,12 +35,14 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <atomic>
 
 namespace {
 
 constexpr int kRowWalkers = 32;   // rows per block of the row kernel, at most
 constexpr int kRowThreads = 128;  // threads that load and store the tile
 constexpr int kColThreads = 64;
+constexpr int kMaxDevices = 64;
 
 struct Hmm {
   float e0, ncp, omn;  // emission of state 0, no-change prob, 1 - ncp
@@ -121,6 +124,34 @@ fb_cols_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
+// The chain's latency without memory: one thread walks n forward steps,
+// then n backward steps, from registers. n steps of each is the chain of one
+// line of n positions, so (h + w) times the time of one step of each is the
+// serial floor of a call (chip_smoke.py measures it).
+__global__ void fb_chain_probe_kernel(const float* e, float* out, int n, Hmm m) {
+  float prev = e[0];
+  const float e1 = e[1];
+  for (int i = 0; i < n; ++i) prev = fwd_step(prev, e1, m);
+  for (int i = 0; i < n; ++i) prev = bwd_step(prev, e1, m);
+  out[0] = prev;
+}
+
+// The opt-in shared memory per block of the current device, with the row
+// kernel's limit raised to it: queried and set once per device.
+cudaError_t row_smem_limit(int* limit) {
+  static std::atomic<int> cache[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && (*limit = cache[dev].load()) > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fb_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               *limit);
+  if (err == cudaSuccess && dev < kMaxDevices) cache[dev].store(*limit);
+  return err;
+}
+
 }  // namespace
 
 // Smooths the (m, h, w) stack `in` into `out`, through the scratch stack
@@ -134,18 +165,13 @@ extern "C" int fb_smooth_launch(const float* in, float* mid, float* out, int m,
   cudaStream_t s = (cudaStream_t)stream;
   const Hmm hmm{e0, ncp, omn};
   const int ld = w | 1;  // odd stride: conflict-free walkers
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int max_smem = 0;
+  cudaError_t err = row_smem_limit(&max_smem);
   if (err != cudaSuccess) return (int)err;
   // as many rows per block as shared memory holds (32 at w = 613)
   const int rows = std::min(kRowWalkers, max_smem / (int)(2 * ld * sizeof(float)));
   if (rows < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = 2ull * rows * ld * sizeof(float);
-  err = cudaFuncSetAttribute(fb_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int lines = m * h;
   fb_rows_kernel<<<(lines + rows - 1) / rows, kRowThreads, smem, s>>>(
       in, mid, lines, w, ld, rows, hmm);
@@ -153,5 +179,14 @@ extern "C" int fb_smooth_launch(const float* in, float* mid, float* out, int m,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((w + kColThreads - 1) / kColThreads, m);
   fb_cols_kernel<<<grid, kColThreads, 0, s>>>(mid, out, h, w, hmm);
+  return (int)cudaGetLastError();
+}
+
+// fb_chain_probe_kernel on one thread: e (2 floats) in, out (1 float); both
+// device pointers. Returns a cudaError_t as int; does not synchronise.
+extern "C" int fb_chain_probe_launch(const float* e, float* out, int n, float e0, float ncp,
+                                     float omn, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  fb_chain_probe_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(e, out, n, Hmm{e0, ncp, omn});
   return (int)cudaGetLastError();
 }

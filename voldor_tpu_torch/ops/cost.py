@@ -227,7 +227,8 @@ def _bind(mode, cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_s
 
 def _launch(mode, *operands, **kw):
     fn, args, _poses = _bind(mode, *operands, **kw)
-    err = fn(*args)
+    with torch.cuda.device(operands[0].device):  # the launch goes to the current device
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"cost kernel launch failed: cudaError {err}")
     global cost_kernel_launches, cost_score_launches

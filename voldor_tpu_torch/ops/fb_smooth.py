@@ -94,9 +94,10 @@ def fb_smooth(prob: torch.Tensor, s0_ems_prob: float, no_change_prob: float) -> 
     mid = torch.empty_like(prob)
     out = torch.empty_like(prob)
     fn = _build.function("fb_smooth_launch", _ARGTYPES)
-    err = fn(prob.data_ptr(), mid.data_ptr(), out.data_ptr(), m, h, w,
-             *_constants(s0_ems_prob, no_change_prob),
-             torch.cuda.current_stream(prob.device).cuda_stream)
+    with torch.cuda.device(prob.device):  # the launch goes to the current device
+        err = fn(prob.data_ptr(), mid.data_ptr(), out.data_ptr(), m, h, w,
+                 *_constants(s0_ems_prob, no_change_prob),
+                 torch.cuda.current_stream(prob.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fb_smooth kernel launch failed: cudaError {err}")
     fb_smooth_kernel_launches += 1
