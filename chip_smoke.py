@@ -52,17 +52,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same functions run on CPU copies of their inputs within 1e-5, every
    engine tensor and live frame map on the card, >= 8 cost-kernel launches
    per EM iteration and fb_smooth launches, Sim3 ATE < 0.02 * extent),
-   then 3 timed passes;
+   then 1 timed pass;
 11. slam-stereo: the same scene with disparity bf / depth (bf = 175) in
    mode="stereo"; one checked pass under the metric ATE gate (no scale
-   alignment, < 0.02 * extent), then 1 timed pass.
+   alignment, < 0.02 * extent), then 1 timed pass;
+12. falign: a falign_pairs batch of four keyframe pairs of the full-SLAM
+   scene (bench.py:240-298: 613x185, 60 flows, out and back, textured) at
+   the SLAM layer's local-link settings, without and with images, on the
+   card and on the CPU: per-lane iteration counts within FALIGN_ITERS_TOL
+   plus the CPU run's own spread (the CPU run again with its init moved by
+   1e-6), every solver tensor on the card, relative poses within
+   FALIGN_POSE_TOL plus twice that spread, scale ratios within 1e-4,
+   scores within FALIGN_SCORE_TOL, and the card's covariances
+   within FALIGN_COV_RTOL of pair_covariances on the CPU at the card's
+   parameters;
+13. PGO: drifted circle graphs with loop edges at 60 and 600 poses through
+   pgo() (dense), pgo(reduce_threshold_dofs=0) (chain reduction) and
+   pgo_solve_jit (matrix-free CG), on the card and on the CPU: poses within
+   PGO_POSE_TOL;
+14. mapping times: falign_pairs per call and per batched LM iteration at 4
+   and 16 pairs with its kernel launches and host syncs (torch.profiler),
+   PGO dense and CG per solve at 60 and 600 poses;
+15. slam-full-mono: the full-SLAM scene through VOLDOR_SLAM(mode="mono",
+   device="cuda") configured as bench.py:_make_slam_e2e without loop
+   closure, vo_thread and mapping_thread as two threads; one checked pass
+   (threads joined, finite poses, >= 1 accepted falign-local edge, the
+   final global PGO, the kernels' launches, Sim3 ATE < 0.02 * extent), one
+   timed pass (frames/s, the share of the wall in falign and in PGO, how
+   much of the mapping work overlaps the VO windows), and the ATE of a
+   VO-only pass beside the mapped one.
 
+The kernels' launch counts sum the main-path phases (7, 10, 11 and 15).
 The second-to-last line of stdout is a JSON record of the kernels; the
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import re
@@ -95,6 +122,7 @@ FP32_INSTR_PER_S = 67e12 / 2  # FP32 issue rate: 67 TFLOP/s counts an FMA as 2
 # instruction throughput, compute capability 9.0)
 SFU_PER_S = FP32_INSTR_PER_S / 8
 N_LAUNCH = 100  # back-to-back launches per device-only timing
+DEV = "cuda"  # the device of the mapping phases (12-15)
 
 
 def least_ops(fp32, div=0, sqrt=0, log=0, exp=0, pow=0):
@@ -857,6 +885,561 @@ def phase_no_sync(np, torch, scene):
         raise AssertionError(f"not every kernel wrapper ran: {calls}")
 
 
+
+# --------------------------------------------------------------------------
+# the mapping half: falign, PGO, the full SLAM pass
+# --------------------------------------------------------------------------
+
+SLAM_E2E_FLOWS = 60  # bench.py:357
+# relative pose entries, card vs the CPU run: the photometric lanes end on
+# their iteration budgets (coarse 100, fine 12) short of convergence, where
+# float noise moves the point they stop at (printed: both runs' distance to
+# the true relative pose)
+FALIGN_POSE_TOL = 5e-3
+# per-lane LM iterations, card vs the CPU run: a lane whose stop rules sit
+# within float noise ends a few iterations apart; the CPU run itself moves
+# by as much when its init moves by 1e-6 (printed beside)
+FALIGN_ITERS_TOL = 2
+FALIGN_SCORE_TOL = 1e-3  # visibility / consistency
+FALIGN_COV_RTOL = 1e-3  # covariances at the same parameters
+PGO_POSE_TOL = 1e-3  # positions and rotation entries, card vs the CPU run
+
+
+def build_slam_scene(np, torch, n_flows):
+    """The bench's full-SLAM scene (bench.py:240-298, out and back with a
+    revisit, textured gray images), rendered with the port's so3_exp."""
+    from synthetic import plane_depth, render_window
+
+    from voldor_tpu_torch.ops.lie import so3_exp
+
+    K = np.array([[FX, 0, W / 2], [0, FY, H / 2], [0, 0, 1]], np.float32)
+
+    def n_(v):
+        v = np.asarray(v, np.float64)
+        return v / np.linalg.norm(v)
+
+    planes = [
+        (n_([0.1, 0.15, 1.0]), 8.0),
+        (n_([-0.35, 0.1, 1.0]), 6.5),
+        (n_([0.3, -0.25, 1.0]), 7.0),
+        (n_([0.5, 0.35, 1.0]), 7.5),
+    ]
+    rng = np.random.default_rng(11)
+    half = n_flows // 2
+    poses = np.zeros((n_flows, 6), np.float32)
+    for f in range(n_flows):
+        poses[f, :3] = rng.normal(0, 0.002, 3)
+        sign = 1.0 if f < half else -1.0
+        poses[f, 3:6] = [sign * 0.22, 0.01 * sign, 0.0]
+
+    def r2R(rv):
+        return so3_exp(torch.as_tensor(np.asarray(rv, np.float32))).numpy()
+
+    flows, _, Ts = render_window(K, poses, planes, H, W, r2R)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    rays = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(np.asarray(K, np.float64)).T
+    images_bgri, images_grayf, depths = [], [], []
+    for k in range(n_flows + 1):
+        R, t = Ts[k][:3, :3], Ts[k][:3, 3]
+        d = plane_depth(K, R, t, planes, H, W).astype(np.float64)
+        Xw = (rays * d[..., None] - t) @ R
+        t1 = np.sin(2.1 * Xw[..., 0]) * np.cos(1.7 * Xw[..., 1])
+        t2 = np.sin(0.9 * Xw[..., 0] + 1.3 * Xw[..., 1] + 0.7 * Xw[..., 2])
+        t3 = np.sin(3.7 * Xw[..., 0]) * np.sin(2.9 * Xw[..., 1])
+        tex = 40.0 + 75.0 * (t1 > 0) + 60.0 * (t2 > 0.3) + 45.0 * (t3 > 0.2)
+        g8 = np.clip(tex, 0, 255).astype(np.uint8)
+        images_bgri.append(np.repeat(g8[..., None], 3, axis=-1))
+        images_grayf.append(g8.astype(np.float32) / 255.0)
+        depths.append(d.astype(np.float32))
+    return dict(flows=flows, images_bgri=images_bgri, images_grayf=images_grayf, Ts=Ts,
+                depths=depths, K=K)
+
+
+@contextlib.contextmanager
+def spying(module, name, seen):
+    """Append what module.name returns to seen while inside."""
+    real = getattr(module, name)
+
+    def spy(*a, **k):
+        seen.append(real(*a, **k))
+        return seen[-1]
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def falign_batch(np, torch, sc, n_pairs, photo):
+    """A falign_pairs batch at the SLAM layer's local-link settings
+    (voldor_tpu/slam/system.py:928-1091): keyframe pairs of the full-SLAM
+    scene 5 and 10 frames apart, their true depths with 1% seeded noise
+    (a VO depth map is never exact; on exact maps the sqrt-Cauchy
+    robustifier passes every residual below FLT_EPSILON through and the
+    Jacobians vanish) blurred at width 3, the gray images at width 5,
+    seeded confidences, and the relative true pose as init with a small
+    seeded error; stride 4, coarse stride 6 and 12 fine iterations with
+    images, vbf = 5 x basefocal, crw 10, 7-dof."""
+    from voldor_tpu_torch.ops.image import gaussian_blur
+    from voldor_tpu_torch.slam.slam_utils import T44_to_T6
+
+    rng = np.random.default_rng(100 + n_pairs)
+    starts = [0, 5, 10, 15, 20, 25, 30, 35]
+    pairs = [(a, a + 5) for a in starts] + [(a, a + 10) for a in starts]
+    pairs = pairs[:n_pairs]
+
+    def blur(a, k):
+        return gaussian_blur(torch.from_numpy(np.ascontiguousarray(a, np.float32)), k).numpy()
+
+    D = np.stack([[blur(sc["depths"][f] * (1.0 + 0.01 * rng.standard_normal((H, W))), 3)
+                   for f in p] for p in pairs])
+    Wt = rng.uniform(0.5, 1.0, D.shape).astype(np.float32)
+    inits = np.zeros((n_pairs, 2, 6), np.float32)
+    for i, (a, b) in enumerate(pairs):
+        rel = sc["Ts"][a] @ np.linalg.inv(sc["Ts"][b])  # cam b -> cam a
+        inits[i, 1] = T44_to_T6(rel.astype(np.float32)) + rng.normal(0, [2e-3] * 3 + [1e-2] * 3)
+    kw = dict(depths=D, fx=FX, fy=FY, cx=W / 2, cy=H / 2, weights=Wt, poses_init=inits,
+              optimize_7dof=True, stride=4, vbf=BASEFOCAL * 5, crw=10)
+    if photo:
+        kw["images"] = np.stack([[blur(sc["images_grayf"][f], 5) for f in p] for p in pairs])
+        kw["coarse_stride"] = 6
+        kw["fine_iters"] = 12
+    return pairs, kw
+
+
+def _rel_poses(np, torch, poses_ret):
+    from voldor_tpu_torch.ops.lie import pose6_to_T44
+
+    T = pose6_to_T44(torch.as_tensor(poses_ret)).numpy().astype(np.float64)
+    return np.linalg.inv(T[0]) @ T[1]
+
+
+def phase_falign(np, torch, sc):
+    """falign_pairs on the card against the same function on the CPU, four
+    pairs, without and with images: per-lane iteration counts within
+    FALIGN_ITERS_TOL plus the CPU run's own spread (the CPU run again with
+    its init moved by 1e-6), the relative pose within FALIGN_POSE_TOL plus
+    twice that run's spread, the
+    scale ratio within 1e-4 relative, the scores within FALIGN_SCORE_TOL,
+    every solver tensor on the card, and the covariances the card computed
+    against pair_covariances on the CPU at the card's parameters within
+    FALIGN_COV_RTOL."""
+    from voldor_tpu_torch.falign import api as falign_api
+    from voldor_tpu_torch.falign import solver as fsolver
+
+    real_body = fsolver.lm_body
+    off_card = []
+
+    def checked_body(prob, st, lanes, stride):
+        for name, t in list(prob.maps._asdict().items()) + list(st._asdict().items()):
+            if t.device.type != torch.device(DEV).type:
+                off_card.append(name)
+        return real_body(prob, st, lanes, stride)
+
+    worst = dict(pose=0.0, scale=0.0, score=0.0, cov=0.0)
+    for photo in (False, True):
+        pairs, kw = falign_batch(np, torch, sc, 4, photo)
+        solved = []
+        fsolver.lm_body = checked_body
+        try:
+            with spying(falign_api, "solve_lanes", solved):
+                card = falign_api.falign_pairs(**kw, device=DEV)
+        finally:
+            fsolver.lm_body = real_body
+        cpu = falign_api.falign_pairs(**kw, device="cpu")
+        nudged = falign_api.falign_pairs(**dict(kw, poses_init=kw["poses_init"] + 1e-6),
+                                         device="cpu")
+        if off_card:
+            raise AssertionError(f"falign solver tensors off the card: {sorted(set(off_card))}")
+        its = [(a["iters_coarse"], a["iters"]) for a in card]
+        its_cpu = [(a["iters_coarse"], a["iters"]) for a in cpu]
+        its_nudged = [(a["iters_coarse"], a["iters"]) for a in nudged]
+        spread = np.abs(np.asarray(its_cpu) - np.asarray(its_nudged))
+        iters_off = np.abs(np.asarray(its) - np.asarray(its_cpu)) > FALIGN_ITERS_TOL + spread
+        pose_spread = max(float(np.abs(_rel_poses(np, torch, a["poses_ret"])
+                                       - _rel_poses(np, torch, b["poses_ret"])).max())
+                          for a, b in zip(cpu, nudged))
+        # the covariance function on the CPU at the card's parameters
+        cov_card = np.stack([a["poses_covar"] for a in card])
+        cov_ref = cpu_covariances(np, torch, kw, solved[-1][0].cpu().numpy())
+        pose_err = 0.0
+        truth = [sc["Ts"][a] @ np.linalg.inv(sc["Ts"][b]) for a, b in pairs]
+        to_truth = [max(float(np.abs(_rel_poses(np, torch, r["poses_ret"]) - t)[:3, 3].max())
+                        for r, t in zip(run, truth)) for run in (card, cpu)]
+        for a, b in zip(card, cpu):
+            pose_err = max(pose_err, float(np.abs(
+                _rel_poses(np, torch, a["poses_ret"]) - _rel_poses(np, torch, b["poses_ret"])).max()))
+            ra = a["scaling_factor"][1] / a["scaling_factor"][0]
+            rb = b["scaling_factor"][1] / b["scaling_factor"][0]
+            worst["scale"] = max(worst["scale"], abs(ra / rb - 1.0))
+            for k in ("visibility_mat", "consistency_mat"):
+                worst["score"] = max(worst["score"], float(np.nanmax(np.abs(a[k] - b[k]))))
+        worst["pose"] = max(worst["pose"], pose_err)
+        denom = np.maximum(np.abs(cov_ref), 1e-12)
+        diag = np.arange(7)
+        cov_err = float((np.abs(cov_card - cov_ref)[..., diag, diag] / denom[..., diag, diag]).max())
+        worst["cov"] = max(worst["cov"], cov_err)
+        cov_indep = float((np.abs(cov_card - np.stack([b["poses_covar"] for b in cpu]))
+                           [..., diag, diag] / denom[..., diag, diag]).max())
+        log(f"[falign] {'photo + geo' if photo else 'geo'} pairs {pairs}: iterations (coarse, fine) "
+            f"card {its} cpu {its_cpu} (cpu with its init moved by 1e-6: {its_nudged}, relative "
+            f"poses moved {pose_spread:.3e}); relative pose max err {pose_err:.3e} (translation "
+            f"from the true relative pose: card {to_truth[0]:.3e}, cpu {to_truth[1]:.3e}), scale ratio "
+            f"{worst['scale']:.3e}, scores {worst['score']:.3e}; covariance diagonals vs the CPU "
+            f"at the card's parameters {cov_err:.3e} relative (vs the CPU's own solve "
+            f"{cov_indep:.3e}); consistency {[round(float(np.nanmean(a['consistency_mat'])), 4) for a in card]}")
+        if iters_off.any():
+            raise AssertionError("falign iteration counts differ between the card and the CPU")
+        if pose_err > FALIGN_POSE_TOL + 2 * pose_spread:
+            raise AssertionError(f"falign relative poses differ by {pose_err:.3e} on the card")
+    if worst["scale"] > 1e-4 or worst["score"] > FALIGN_SCORE_TOL or worst["cov"] > FALIGN_COV_RTOL:
+        raise AssertionError(f"falign on the card disagrees with the CPU run: {worst}")
+    return worst
+
+
+def cpu_covariances(np, torch, kw, params):
+    """pair_covariances on the CPU for the batch kw at params (P, 2, 9),
+    as falign_pairs reports them (7-dof: the pose block and the scale)."""
+    from voldor_tpu_torch.falign import api as falign_api
+    from voldor_tpu_torch.falign.residual import precompute_maps
+    from voldor_tpu_torch.falign.solver import pair_covariances
+
+    P = params.shape[0]
+    cpu = torch.device("cpu")
+    shape = (P * 2, H, W)
+    photo = "images" in kw
+    maps = precompute_maps(falign_api._tensor(kw["depths"], cpu, shape),
+                           falign_api._tensor(kw["weights"], cpu, shape),
+                           falign_api._tensor(kw.get("images"), cpu, shape),
+                           kw["fx"], kw["fy"], kw["cx"], kw["cy"])
+    gauge = np.zeros((1, 18), np.float32)
+    gauge[0, 6] = gauge[0, 15] = 1.0
+    prob = falign_api._problem(maps, ((0, 1), (1, 0)), 2, kw["fx"], kw["fy"], kw["cx"], kw["cy"],
+                               kw["vbf"], kw["crw"], photo, falign_api._dim_mask(2, True, photo),
+                               gauge, cpu)
+    cov, _ = pair_covariances(prob, torch.as_tensor(params), torch.arange(P), kw["stride"])
+    cov = cov.numpy()
+    out = np.zeros((P, 2, 7, 7), np.float32)
+    out[..., :6, :6] = cov[..., :6, :6]
+    out[..., 6, 6] = cov[..., 6, 6]
+    return out
+
+
+def circle_graph(np, torch, n, seed):
+    """A drifted circle pose graph (tests/test_pgo.py's construction): exact
+    relative measurements along the chain plus loop edges (0, n-1) and
+    (0, n/2); the initial poses drift by a seeded random walk."""
+    from voldor_tpu_torch.ops.lie import T44_to_pose6, pose6_to_T44
+
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(n) / n
+    gt = np.zeros((n, 7), np.float32)
+    gt[:, 2] = a
+    gt[:, 3], gt[:, 4] = 10.0 * np.cos(a), 10.0 * np.sin(a)
+    T = pose6_to_T44(torch.as_tensor(gt[:, :6])).numpy().astype(np.float64)
+    noisy = gt.copy()
+    noisy[1:, 3:6] += rng.normal(0, 0.05, (n - 1, 3)).cumsum(0)
+    noisy[1:, :3] += rng.normal(0, 0.01, (n - 1, 3)).cumsum(0)
+    edges = np.asarray([[i, i + 1] for i in range(n - 1)] + [[0, n - 1], [0, n // 2]], np.int32)
+    meas = np.zeros((len(edges), 7), np.float32)
+    rel = np.linalg.inv(T[edges[:, 1]]) @ T[edges[:, 0]]
+    meas[:, :6] = T44_to_pose6(torch.as_tensor(rel.astype(np.float32))).numpy()
+    covar = np.tile((np.eye(7) * 1e-4).astype(np.float32), (len(edges), 1, 1))
+    return noisy, edges, meas, covar
+
+
+def _pose_err(np, torch, a, b):
+    from voldor_tpu_torch.ops.lie import so3_exp
+
+    R = [so3_exp(torch.as_tensor(np.asarray(x)[:, :3])).numpy() for x in (a, b)]
+    return max(float(np.abs(a[:, 3:7] - b[:, 3:7]).max()), float(np.abs(R[0] - R[1]).max()))
+
+
+def phase_pgo(np, torch):
+    """pgo() on the card against the CPU at 60 and 600 poses (dense), then
+    pgo_solve_jit (matrix-free CG) and pgo(reduce_threshold_dofs=0) (chain
+    reduction): poses within PGO_POSE_TOL. Returns the largest error."""
+    from voldor_tpu_torch.ops.lie import quat_to_rvec
+    from voldor_tpu_torch.pgo import api as pgo_api
+    from voldor_tpu_torch.pgo import solver as pgo_solver
+
+    worst = 0.0
+    for n in (60, 600):
+        g = circle_graph(np, torch, n, seed=n)
+        for kw in ({}, {"reduce_threshold_dofs": 0}):
+            out, solves = {}, {}
+            for dev in (DEV, "cpu"):
+                dense, cg, reduced = [], [], []
+                with spying(pgo_api, "pgo_solve_dense_jit", dense), \
+                        spying(pgo_api, "pgo_solve_jit", cg), \
+                        spying(pgo_api, "chain_reduce", reduced):
+                    out[dev] = pgo_api.pgo(*g, device=dev, **kw)
+                solves[dev] = (("reduced to %d poses, " % len(reduced[0][0])) if reduced else "") + \
+                    ", ".join(f"{name} {int(r[2])} LM iterations, cost {float(r[1]):.4e}"
+                              for name, rs in (("dense", dense), ("cg", cg)) for r in rs)
+            err = _pose_err(np, torch, out[DEV], out["cpu"])
+            worst = max(worst, err)
+            log(f"[pgo] pgo() n={n} {kw or ''}: card {solves[DEV]}; cpu {solves['cpu']}; "
+                f"poses max err {err:.3e}")
+        # the CG path, called directly
+        res = {}
+        for dev in (DEV, "cpu"):
+            prob, _, _ = pgo_solver.build_problem(g[0], None, g[1], g[2], g[3], False,
+                                                  torch.device(dev))
+            sol, cost, iters = pgo_solver.pgo_solve_jit(prob)
+            res[dev] = (np.concatenate([quat_to_rvec(sol.q).cpu().numpy(),
+                                        sol.p.cpu().numpy(), sol.s.cpu().numpy()[:, None]], 1),
+                        float(cost), int(iters))
+        err = _pose_err(np, torch, res[DEV][0], res["cpu"][0])
+        worst = max(worst, err)
+        log(f"[pgo] pgo_solve_jit (CG) n={n}: cost / iterations card {res[DEV][1:]} cpu "
+            f"{res['cpu'][1:]}; poses max err {err:.3e}")
+    if worst > PGO_POSE_TOL:
+        raise AssertionError(f"PGO on the card disagrees with the CPU run ({worst:.3e})")
+    return worst
+
+
+def profile_counts(torch, fn):
+    """(kernel launches, stream/device syncs, device-to-host copies) of one
+    call of fn, from torch.profiler's runtime events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = {e.key: e.count for e in prof.key_averages()}
+    launches = sum(v for k, v in n.items() if k.startswith("cudaLaunchKernel"))
+    syncs = sum(v for k, v in n.items() if k in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                                   "cudaEventSynchronize"))
+    copies = n.get("cudaMemcpyAsync", 0)
+    return launches, syncs, copies
+
+
+def phase_mapping_times(np, torch, sc):
+    """falign_pairs per call and per LM iteration at 4 and 16 pairs (with
+    images, the local-link settings), with its launches and host syncs;
+    PGO dense and CG per solve at 60 and 600 poses."""
+    from voldor_tpu_torch.falign import api as falign_api
+    from voldor_tpu_torch.falign import solver as fsolver
+    from voldor_tpu_torch.pgo import solver as pgo_solver
+
+    out = {}
+    real_body = fsolver.lm_body
+    for n_pairs in (4, 16):
+        _, kw = falign_batch(np, torch, sc, n_pairs, True)
+        falign_api.falign_pairs(**kw, device=DEV)  # warm
+        bodies = [0]
+
+        def counted(*a, **k):
+            bodies[0] += 1
+            return real_body(*a, **k)
+
+        times = []
+        fsolver.lm_body = counted
+        try:
+            for _ in range(3):
+                bodies[0] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rets = falign_api.falign_pairs(**kw, device=DEV)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            fsolver.lm_body = real_body
+        chunks = []  # one read of the done flags per chunk of LM iterations
+        with spying(fsolver, "lm_iterate", chunks):
+            launches, syncs, copies = profile_counts(
+                torch, lambda: falign_api.falign_pairs(**kw, device=DEV))
+        call = statistics.median(times)
+        lane_its = sum(r["iters"] + r["iters_coarse"] for r in rets)
+        out[n_pairs] = dict(call_s=call, per_iter_ms=call / bodies[0] * 1e3, batch_iters=bodies[0],
+                            lane_iters=lane_its, launches=launches, syncs=syncs, copies=copies,
+                            host_reads=len(chunks))
+        log(f"[times] falign_pairs {n_pairs} pairs (photo + geo, 7-dof, stride 4, coarse 6): "
+            f"{call:.4f} s per call (median of 3: {[round(t, 4) for t in times]}), "
+            f"{bodies[0]} batched LM iterations ({lane_its} lane iterations), "
+            f"{call / bodies[0] * 1e3:.3f} ms per batched iteration; per call {launches} kernel "
+            f"launches, {syncs} host syncs, {copies} memcpys, {len(chunks)} done-flag reads")
+    for n in (60, 600):
+        g = circle_graph(np, torch, n, seed=n)
+        prob, _, _ = pgo_solver.build_problem(g[0], None, g[1], g[2], g[3], False,
+                                              torch.device(DEV))
+        for name, solve in (("dense", pgo_solver.pgo_solve_dense_jit), ("cg", pgo_solver.pgo_solve_jit)):
+            solve(prob, max_iters=2)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cost, iters = solve(prob)
+            iters = int(iters)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            out[f"pgo_{name}_{n}"] = dict(solve_s=dt, iters=iters)
+            log(f"[times] PGO {name} n={n}: {dt:.4f} s per solve, {iters} LM iterations, "
+                f"{dt / max(iters, 1) * 1e3:.3f} ms per iteration, cost {float(cost):.4e}")
+    return out
+
+
+def make_full_slam(sc):
+    """VOLDOR_SLAM(mode="mono") configured as bench.py:_make_slam_e2e
+    (:301-321), without enable_loop_closure (ORB retrieval needs cv2)."""
+    from voldor_tpu_torch.slam.system import VOLDOR_SLAM
+
+    slam = VOLDOR_SLAM(mode="mono", device=DEV)
+    slam.set_cam_params(FX, FY, W / 2, H / 2)
+    flows = sc["flows"]
+    slam.flows = [flows[i] for i in range(flows.shape[0])]
+    slam.N_FRAMES = flows.shape[0] + 1
+    slam.h, slam.w = H, W
+    slam.flow_loader_pt = flows.shape[0]
+    slam.images_bgri = list(sc["images_bgri"])
+    slam.images_grayf = list(sc["images_grayf"])
+    slam.image_loader_pt = len(sc["images_bgri"])
+    slam.lc_min_kf_distance = 3
+    return slam
+
+
+def _overlap(intervals, others):
+    """Seconds of intervals that fall inside the union of others."""
+    tot = 0.0
+    for a0, a1 in intervals:
+        for b0, b1 in others:
+            tot += max(0.0, min(a1, b1) - max(a0, b0))
+    return tot
+
+
+def run_full_slam(np, torch, sc, check=False):
+    """One pass of vo_thread + mapping_thread, joined with a timeout as
+    bench.py:_run_slam_once does. Returns (slam, wall s, stats)."""
+    import threading
+
+    from voldor_tpu_torch.falign import api as falign_api
+    from voldor_tpu_torch.pgo import api as pgo_api
+
+    slam = make_full_slam(sc)
+    events, spans, dispatched = [], {"falign": [], "pgo": [], "vo": []}, []
+    slam.metrics.log = lambda event, **kw: events.append(dict(event=event, **kw))
+
+    def spanned(name, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spans[name].append((t0, time.perf_counter()))
+        return wrapper
+
+    real = {"falign": falign_api.falign_pairs, "pgo": pgo_api.pgo}
+    falign_api.falign_pairs = spanned("falign", real["falign"])
+    pgo_api.pgo = spanned("pgo", real["pgo"])
+    slam.process_vo = spanned("vo", slam.process_vo)
+    dispatch = slam._vo_dispatch
+
+    def counting_dispatch(inputs):
+        handle = dispatch(inputs)
+        dispatched.append(handle)
+        return handle
+
+    slam._vo_dispatch = counting_dispatch
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vo = threading.Thread(target=slam.vo_thread, daemon=True)
+        mp = threading.Thread(target=slam.mapping_thread, daemon=True)
+        vo.start()
+        mp.start()
+        vo.join(timeout=600)
+        mp.join(timeout=600)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        falign_api.falign_pairs, pgo_api.pgo = real["falign"], real["pgo"]
+    alive = vo.is_alive() or mp.is_alive()
+    links = [e for e in events if e["event"] == "local_link"]
+    pgos = [e for e in events if e["event"] == "pgo"]
+    busy = {k: sum(b - a for a, b in v) for k, v in spans.items()}
+    mapping = spans["falign"] + spans["pgo"]
+    st = dict(
+        alive=alive, keyframes=list(slam.kf_ids), links=len(links),
+        accepted=sum(1 for e in links if e["accepted"]),
+        rejected_cv=sum(1 for e in links if e["rejected_by"] == "consistency/visibility"),
+        rejected_rank=sum(1 for e in links if e["rejected_by"] == "covar_rank"),
+        pgo=[(e["fid_start"], e["n_frames"], e["n_edges"], e["solve_s"]) for e in pgos],
+        falign_calls=len(spans["falign"]), falign_s=busy["falign"], pgo_s=busy["pgo"],
+        vo_s=busy["vo"], overlap_s=_overlap(mapping, spans["vo"]),
+        edges={t: sum(1 for e in slam.edges if e.edge_type == t)
+               for t in sorted({e.edge_type for e in slam.edges})},
+        em_iters=sum(int(h.engine._st_scalars[1]) for h in dispatched),
+    )
+    if check:
+        if alive:
+            raise AssertionError("slam-full-mono: a thread is still alive after the join")
+        if len(slam.frames) != sc["flows"].shape[0] + 1:
+            raise AssertionError(f"slam-full-mono: {len(slam.frames)} frames")
+        if not all(np.isfinite(f.Tcw).all() for f in slam.frames):
+            raise AssertionError("slam-full-mono: a frame pose is not finite")
+        if st["edges"].get("falign-local", 0) < 1:
+            raise AssertionError("slam-full-mono: no falign-local edge was accepted")
+        if not pgos or pgos[-1]["fid_start"] != 0:
+            raise AssertionError("slam-full-mono: the final global PGO did not run")
+    return slam, dt, st
+
+
+def phase_full_slam(np, torch, sc):
+    """slam-full-mono: one checked pass with the kernels' launches counted,
+    one timed pass, and a VO-only pass (process_vo alone) for comparison.
+    Returns (launch counts, frames/s of the timed pass, ATE)."""
+    from voldor_tpu_torch.utils.evaluation import ate_rmse
+
+    gt = np.linalg.inv(sc["Ts"])
+    extent = float(np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=1).max())
+    n_frames = sc["flows"].shape[0] + 1
+
+    def ate_of(slam):
+        return ate_rmse(np.stack([f.Tcw for f in slam.frames]).astype(np.float64), gt,
+                        with_scale=True)
+
+    reset_counts()
+    slam, dt0, st = run_full_slam(np, torch, sc, check=True)
+    counts = read_counts()
+    ate = ate_of(slam)
+    log(f"[slam-full-mono] checked pass: {n_frames} frames in {dt0:.4f} s ({n_frames / dt0:.4f} "
+        f"frames/s); keyframes {len(st['keyframes'])} {st['keyframes']}; local links tried "
+        f"{st['links']}, accepted {st['accepted']}, rejected by consistency/visibility "
+        f"{st['rejected_cv']}, by covariance rank {st['rejected_rank']}; edges {st['edges']}; PGO "
+        f"solves (fid_start, n_frames, n_edges, solve_s) {st['pgo']}; falign calls "
+        f"{st['falign_calls']}; EM iterations {st['em_iters']}, cost kernel launches "
+        f"{counts['cost']} ({counts['score']} in score mode), fb_smooth launches {counts['fb']}")
+    log(f"[slam-full-mono] Sim3 ATE {ate:.6f} vs gate {0.02 * extent:.6f} (extent {extent:.4f})")
+    check_counts("slam-full-mono", counts, st["em_iters"])
+    if not ate < 0.02 * extent:
+        raise AssertionError("slam-full-mono: trajectory fails the Sim3-ATE gate")
+
+    slam, dt, st = run_full_slam(np, torch, sc)
+    ate_t = ate_of(slam)
+    log(f"[slam-full-mono] timed pass: {n_frames / dt:.4f} frames/s ({dt:.4f} s); falign "
+        f"{st['falign_s']:.4f} s in {st['falign_calls']} calls ({100 * st['falign_s'] / dt:.1f}% "
+        f"of the wall), PGO {st['pgo_s']:.4f} s in {len(st['pgo'])} solves "
+        f"({100 * st['pgo_s'] / dt:.1f}%), VO windows {st['vo_s']:.4f} s "
+        f"({100 * st['vo_s'] / dt:.1f}%); mapping work inside VO windows {st['overlap_s']:.4f} s "
+        f"({100 * st['overlap_s'] / max(st['falign_s'] + st['pgo_s'], 1e-9):.1f}% of it); "
+        f"keyframes {len(st['keyframes'])}, links {st['accepted']}/{st['links']} accepted, PGO "
+        f"{st['pgo']}; Sim3 ATE {ate_t:.6f}")
+    if st["alive"] or not ate_t < 0.02 * extent:
+        raise AssertionError("slam-full-mono: the timed pass fails")
+
+    vo_only = make_full_slam(sc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while vo_only.process_vo():
+        pass
+    torch.cuda.synchronize()
+    dt_vo = time.perf_counter() - t0
+    log(f"[slam-full-mono] VO-only pass (process_vo alone, for comparison): "
+        f"{n_frames / dt_vo:.4f} frames/s, Sim3 ATE {ate_of(vo_only):.6f}; the mapped pass "
+        f"{ate_t:.6f}")
+    return counts, n_frames / dt, ate
+
+
 def main():
     import numpy as np
     import torch
@@ -931,7 +1514,7 @@ def main():
 
     K, planes, _, flows, _, Ts, _ = scene
     gt = np.linalg.inv(Ts)  # cam -> world, frames 0..24
-    mono, fps_mono, ate_mono = phase_slam(np, torch, "mono", flows, gt, n_timed=3)
+    mono, fps_mono, ate_mono = phase_slam(np, torch, "mono", flows, gt, n_timed=1)
     disps = [(BF_STEREO / plane_depth(K, Ts[k][:3, :3], Ts[k][:3, 3], planes, H, W)).astype(np.float32)
              for k in range(SLAM_FLOWS)]
     stereo, fps_st, ate_st = phase_slam(np, torch, "stereo", flows, gt, disps=disps, n_timed=1)
@@ -939,7 +1522,19 @@ def main():
         f"frames/s (metric ATE {ate_st:.6f}); launches cost / fb_smooth: windows "
         f"{win_counts['cost']} / {win_counts['fb']}, mono pass {mono['cost']} / {mono['fb']}, "
         f"stereo pass {stereo['cost']} / {stereo['fb']}")
-    paths = (win_counts, mono, stereo)
+
+    # the mapping half: falign and PGO against their CPU runs, their times,
+    # then the full SLAM pass (VO + mapping thread) on the bench's scene
+    sc = build_slam_scene(np, torch, SLAM_E2E_FLOWS)
+    falign_err = phase_falign(np, torch, sc)
+    pgo_err = phase_pgo(np, torch)
+    mapping_times = phase_mapping_times(np, torch, sc)
+    full, fps_full, ate_full = phase_full_slam(np, torch, sc)
+    log(f"[mapping] falign card vs CPU {falign_err}; PGO card vs CPU {pgo_err:.3e}; slam-full-mono "
+        f"{fps_full:.4f} frames/s (Sim3 ATE {ate_full:.6f}) beside slam-mono {fps_mono:.4f}; "
+        f"launches cost / fb_smooth on the full pass {full['cost']} / {full['fb']}; "
+        f"times {json.dumps(mapping_times)}")
+    paths = (win_counts, mono, stereo, full)
 
     log(f"[device] {smi}")
     log(json.dumps({"kernels": [

@@ -13,10 +13,16 @@ seam under it) against the JAX package's, on the CPU.
   8-flow scene, mono (the gates of test_slam_mono_vo_trajectory) and
   stereo (a metric ATE gate, 0.02 x extent); the saved outputs.
 * Without a card, device=None raises instead of running on the CPU.
+* The mapping half against the JAX VOLDOR_SLAM: establish_links_batch
+  (local and lc) and solve_pgo on identical injected keyframes, the
+  mapping thread's scheduling with falign_pairs and pgo stubbed, and
+  vo_thread + mapping_thread end to end at 72x96. Tolerances at each test.
 """
 
 import json
 import re
+import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -25,11 +31,17 @@ import pytest
 import torch
 
 from voldor_tpu.config import VoldorConfig as JConfig
+from voldor_tpu.falign import api as jfalign_api
+from voldor_tpu.pgo import api as jpgo_api
+from voldor_tpu.slam.frame import Edge as JEdge, Frame as JFrame
 from voldor_tpu.slam.system import VOLDOR_SLAM as JSLAM
 from voldor_tpu.vo import engine as jengine
 from voldor_tpu_torch.config import VoldorConfig as TConfig
+from voldor_tpu_torch.falign import api as tfalign_api
 from voldor_tpu_torch.ops import cost as tcost
-from voldor_tpu_torch.slam.slam_utils import T6_to_T44, eval_covisibility
+from voldor_tpu_torch.pgo import api as tpgo_api
+from voldor_tpu_torch.slam.frame import Edge as TEdge, Frame as TFrame
+from voldor_tpu_torch.slam.slam_utils import T6_to_T44, T44_to_T6, eval_covisibility
 from voldor_tpu_torch.slam.system import VOLDOR_SLAM as TSLAM
 from voldor_tpu_torch.utils.evaluation import ate_rmse
 from voldor_tpu_torch.vo import api as tapi
@@ -384,7 +396,8 @@ def _check_trajectory(slam, Ts):
     t_est, t_true = T_last_est[:3, 3], T_last_true[:3, 3]
     cos = np.dot(t_est, t_true) / (np.linalg.norm(t_est) * np.linalg.norm(t_true) + 1e-12)
     assert cos > 0.995
-    assert len(slam.edges) == slam.N_FRAMES - 1
+    # one VO edge per frame transition (the mapping thread adds link edges)
+    assert sum(e.edge_type in ("vo", "none") for e in slam.edges) == slam.N_FRAMES - 1
     assert all(np.all(np.isfinite(e.pose_covar)) for e in slam.edges)
 
 
@@ -492,9 +505,7 @@ def test_port_slam_rejects_engine_resize_factor(sequence):
 
 
 @pytest.mark.parametrize("call", [
-    "mono-scaled", "solve_pgo", "establish_local_links", "establish_links_batch",
-    "establish_lc_links", "mapping_thread", "enable_loop_closure", "flow_loader",
-    "image_loader", "disp_loader",
+    "mono-scaled", "enable_loop_closure", "flow_loader", "image_loader", "disp_loader",
 ])
 def test_unported_entry_points_raise(call):
     if call == "mono-scaled":
@@ -502,7 +513,291 @@ def test_unported_entry_points_raise(call):
             TSLAM(mode=call, device="cpu")
         return
     slam = TSLAM(mode="mono", device="cpu")
-    args = {"solve_pgo": (), "mapping_thread": (), "enable_loop_closure": (),
-            "establish_links_batch": ([(0, 1)],)}.get(call, ("x",))
+    args = {"enable_loop_closure": ()}.get(call, ("x",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(slam, call)(*args)
+
+
+# --------------------------------------------------------------------------
+# (h) the mapping half: links, PGO, the mapping thread
+# --------------------------------------------------------------------------
+
+
+
+def _texture(K, T, depth):
+    """A world-anchored intensity (bench.py:276-297's idea, smooth here)."""
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    rays = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(K.astype(np.float64)).T
+    Xw = (rays * depth[..., None] - T[:3, 3]) @ T[:3, :3]
+    return (0.5 + 0.2 * np.sin(2.1 * Xw[..., 0]) * np.cos(1.7 * Xw[..., 1])
+            + 0.2 * np.sin(0.9 * Xw[..., 0] + 1.3 * Xw[..., 1])).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def keyframe_map():
+    """Eight frames of the gentle test_slam sequence with their true depths
+    (1% noise, so the robustifier does not zero every Jacobian), confidences
+    and textured images; frames 0, 2, 4, 6 are keyframes; a slight drift on
+    the map poses."""
+    _, _, _, Ts = _make_sequence(7, tx=0.3)
+    K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], np.float32)
+    rng = np.random.default_rng(41)
+    frames = []
+    for k, T in enumerate(Ts):
+        d = plane_depth(K, T[:3, :3], T[:3, 3], PLANES, H, W).astype(np.float32)
+        Tcw = np.linalg.inv(T).astype(np.float32)
+        Tcw[:3, 3] *= 1.0 + 0.01 * k
+        frames.append(dict(
+            Tcw=Tcw, depth=(d * (1 + 0.01 * rng.standard_normal(d.shape))).astype(np.float32),
+            conf=rng.uniform(0.5, 1.0, d.shape).astype(np.float32),
+            image=_texture(K, T, d), scale=1.0 + 0.02 * k))
+    return frames
+
+
+def _mapped_slam(cls, frame_cls, edge_cls, fmap, **kw):
+    slam = cls(mode="mono", **kw)
+    slam.set_cam_params(FX, FY, CX, CY)
+    slam.h, slam.w = H, W
+    slam.N_FRAMES = len(fmap) + 1
+    for k, f in enumerate(fmap):
+        fr = frame_cls(f["Tcw"], f["depth"].copy(), f["conf"].copy(), scale=f["scale"],
+                       is_keyframe=k % 2 == 0)
+        slam.frames.append(fr)
+        if k % 2 == 0:
+            slam.kf_ids.append(k)
+        if k:
+            rel = np.linalg.inv(fmap[k]["Tcw"]) @ fmap[k - 1]["Tcw"]
+            slam.edges.append(edge_cls(k - 1, k, T44_to_T6(rel),
+                                       np.diag([1e-4] * 3 + [1e-3] * 3).astype(np.float32),
+                                       edge_type="vo"))
+    slam.Twc_cur = np.linalg.inv(fmap[-1]["Tcw"]).astype(np.float32)
+    slam.images_grayf = [f["image"] for f in fmap]
+    slam.image_loader_pt = len(fmap)
+    # the far pair (0, 6) sees ~0.73 of its partner, the others >= 0.87
+    slam.mp_link_visibility_thresh = slam.lc_link_visibility_thresh = 0.8
+    events = []
+    slam.metrics.log = lambda event, **k: events.append(dict(event=event, **k))
+    return slam, events
+
+
+
+@pytest.mark.parametrize("kind", ["local", "lc"])
+def test_links_batch_matches_jax(keyframe_map, kind, monkeypatch):
+    """establish_links_batch on identical injected keyframes in both
+    VOLDOR_SLAMs: the same gate decisions and metrics; consistency within
+    1e-3 and visibility within 1e-2,
+    edge poses within 6e-3 and covariance diagonals within 50% (7-dof mono
+    links: the JAX package itself moves these local-link poses by up to
+    5.4e-3, and the covariance diagonals by 3%, when the map poses move by
+    1e-6; tests/test_torch_falign.py says why). cv2 is hidden from the JAX
+    side, so both blur with the same separable Gaussian (at the
+    loop-closure image width, 9, cv2's own taps differ)."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    pairs = [(0, 2), (2, 4), (0, 6), (4, 6)]
+    j, jev = _mapped_slam(JSLAM, JFrame, JEdge, keyframe_map)
+    t, tev = _mapped_slam(TSLAM, TFrame, TEdge, keyframe_map, device="cpu")
+    n0 = len(j.edges)
+    j.establish_links_batch(pairs, kind=kind)
+    t.establish_links_batch(pairs, kind=kind)
+    assert [e["accepted"] for e in tev] == [e["accepted"] for e in jev]
+    assert any(e["accepted"] for e in tev) and not all(e["accepted"] for e in tev)
+    for a, b in zip(tev, jev):
+        assert (a["event"], a["kf_ids"], a["rejected_by"]) == (b["event"], b["kf_ids"], b["rejected_by"])
+        assert abs(a["consistency"] - b["consistency"]) <= 1e-3
+        # the share of pixels landing inside the partner frame: a few
+        # border pixels (of ~700) move with the pose
+        assert abs(a["visibility"] - b["visibility"]) <= 1e-2
+    assert len(t.edges) == len(j.edges) > n0
+    for a, b in zip(t.edges[n0:], j.edges[n0:]):
+        assert (a.fid1, a.fid2, a.edge_type) == (b.fid1, b.fid2, b.edge_type)
+        np.testing.assert_allclose(a.pose, b.pose, rtol=0, atol=6e-3)
+        assert np.linalg.matrix_rank(a.pose_covar) == np.linalg.matrix_rank(b.pose_covar) == 7
+        np.testing.assert_allclose(np.diag(a.pose_covar), np.diag(b.pose_covar), rtol=0.5)
+
+
+@pytest.mark.parametrize("fid_start", [0, 2])
+def test_solve_pgo_matches_jax(keyframe_map, fid_start):
+    """solve_pgo on the same graph (VO edges plus two link edges): the
+    rebased poses, scales and live camera within tolerance, one map
+    version bump and the pgo metrics event on both sides."""
+    j, jev = _mapped_slam(JSLAM, JFrame, JEdge, keyframe_map)
+    t, tev = _mapped_slam(TSLAM, TFrame, TEdge, keyframe_map, device="cpu")
+    for a, b, cov in ((0, 4, 2e-3), (2, 6, 1e-3)):
+        rel = np.linalg.inv(keyframe_map[b]["Tcw"]) @ keyframe_map[a]["Tcw"]
+        pose7 = np.zeros(7, np.float32)
+        pose7[:6] = T44_to_T6(rel)
+        pose7[6] = np.log(keyframe_map[b]["scale"] / keyframe_map[a]["scale"]) * 0.5
+        for slam, cls in ((j, JEdge), (t, TEdge)):
+            slam.edges.append(cls(a, b, pose7, np.eye(7, dtype=np.float32) * cov,
+                                  edge_type="falign-local"))
+    j.solve_pgo(fid_start)
+    t.solve_pgo(fid_start)
+    assert j._map_version == t._map_version == 1
+    assert [(e["fid_start"], e["n_frames"], e["n_edges"]) for e in tev] == \
+        [(e["fid_start"], e["n_frames"], e["n_edges"]) for e in jev]
+    for fa, fb in zip(t.frames, j.frames):
+        np.testing.assert_allclose(fa.Tcw, fb.Tcw, rtol=0, atol=2e-4)
+        np.testing.assert_allclose(fa.scale, fb.scale, rtol=2e-4)
+    np.testing.assert_allclose(t.Twc_cur, j.Twc_cur, rtol=0, atol=2e-4)
+    moved = max(np.abs(f.Tcw - keyframe_map[k]["Tcw"]).max() for k, f in enumerate(t.frames))
+    assert moved > 1e-3  # the link edges pulled the map
+
+
+class _KeyframeFeed:
+    """end_of_vo as a property that delivers one keyframe every third read
+    of it: the mapping loop reads it once per pass (and once more in its
+    idle branch), so keyframe arrival is a function of the loop's own
+    progress, with no clock or thread involved."""
+
+    def __init__(self, order):
+        self.order = list(order)
+        self.reads = 0
+
+    def read(self, slam):
+        self.reads += 1
+        if self.order and self.reads % 3 == 0:
+            slam.kf_ids.append(self.order.pop(0))
+        return not self.order
+
+
+def _feeding(cls):
+    class Fed(cls):
+        feed = None
+
+        @property
+        def end_of_vo(self):
+            return self.feed.read(self) if self.feed is not None else False
+
+        @end_of_vo.setter
+        def end_of_vo(self, v):
+            pass
+
+    return Fed
+
+
+def _stub_falign_pairs(depths, fx, fy, cx, cy, weights=None, images=None, poses_init=None,
+                       optimize_7dof=False, **kw):
+    """One answer per lane from its inputs alone: the init pose back, a unit
+    covariance, and scores that pass the gates only while the two depth
+    maps' means are close (near keyframes)."""
+    out = []
+    for i in range(depths.shape[0]):
+        close = abs(float(depths[i, 0].mean()) - float(depths[i, 1].mean())) < 0.08
+        d = 7 if optimize_7dof else 6
+        vm = np.full((2, 2), np.nan, np.float32)
+        cm = np.full((2, 2), np.nan, np.float32)
+        vm[0, 1] = vm[1, 0] = 0.9 if close else 0.5
+        cm[0, 1] = cm[1, 0] = 0.95
+        out.append(dict(poses_ret=(poses_init[i] if poses_init is not None
+                                   else np.zeros((2, 6), np.float32)),
+                        poses_covar=np.tile(np.eye(d, dtype=np.float32) * 1e-4, (2, 1, 1)),
+                        scaling_factor=np.ones(2, np.float32), visibility_mat=vm,
+                        consistency_mat=cm, iters=1, iters_coarse=0))
+    return out
+
+
+def _stub_pgo(poses, edges_idx, edges_pose, edges_covar=None, poses_idx=None,
+              optimize_7dof=False, **kw):
+    return np.asarray(poses, np.float32).copy()
+
+
+def test_mapping_thread_schedules_as_jax(monkeypatch):
+    """The mapping thread's scheduler in both packages, with falign_pairs and
+    pgo stubbed (module attributes; nothing in voldor_tpu is edited) and a
+    deterministic keyframe arrival (_KeyframeFeed), the link age limit set
+    high: the same sequence of (pair_list, kind) dispatches and of
+    solve_pgo(fid_start) calls, the same edges and metrics."""
+    monkeypatch.setattr(jfalign_api, "falign_pairs", _stub_falign_pairs)
+    monkeypatch.setattr(tfalign_api, "falign_pairs", _stub_falign_pairs)
+    monkeypatch.setattr(jpgo_api, "pgo", _stub_pgo)
+    monkeypatch.setattr(tpgo_api, "pgo", _stub_pgo)
+    n_frames, kf_every = 97, 3
+    K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], np.float32)
+    runs = {}
+    for name, cls, fcls, ecls, kw in (("jax", JSLAM, JFrame, JEdge, {}),
+                                      ("port", TSLAM, TFrame, TEdge, {"device": "cpu"})):
+        slam = _feeding(cls)(mode="mono", **kw)
+        slam.aot_warmup = False  # the JAX package's compile warm-up thread
+        slam.set_cam_params(FX, FY, CX, CY)
+        slam.mp_link_max_delay_s = 1e9
+        slam.pgo_local_kf_winsize = 8
+        slam.N_FRAMES = n_frames
+        Ts = []
+        for k in range(n_frames - 1):
+            T = np.eye(4, dtype=np.float32)
+            T[:3, 3] = [0.1 * k, 0.0, 0.0]
+            Ts.append(T)
+            depth = np.full((H, W), 5.0 + 0.01 * k, np.float32)
+            slam.frames.append(fcls(T, depth, np.ones((H, W), np.float32)))
+            if k:
+                slam.edges.append(ecls(k - 1, k, np.asarray([0, 0, 0, -0.1, 0, 0], np.float32),
+                                       np.eye(6, dtype=np.float32) * 1e-4, edge_type="vo"))
+        slam.Twc_cur = np.linalg.inv(Ts[-1])
+        slam.images_grayf = [np.zeros((H, W), np.float32)] * n_frames
+        slam.image_loader_pt = n_frames
+        calls = []
+        real_links, real_pgo = slam.establish_links_batch, slam.solve_pgo
+
+        def links(pair_list, kind="local", real=real_links, calls=calls, depth=[0]):
+            if depth[0] == 0:  # the JAX package splits big batches itself
+                calls.append(("links", kind, [tuple(int(x) for x in p) for p in pair_list]))
+            depth[0] += 1
+            try:
+                real(pair_list, kind=kind)
+            finally:
+                depth[0] -= 1
+
+        def pgo(fid_start=0, real=real_pgo, calls=calls):
+            calls.append(("pgo", int(fid_start)))
+            real(fid_start)
+
+        slam.establish_links_batch, slam.solve_pgo = links, pgo
+        events = []
+        slam.metrics.log = lambda event, events=events, **k: events.append(dict(event=event, **k))
+        slam.feed = _KeyframeFeed(range(0, n_frames - 1, kf_every))
+        slam.mapping_thread()
+        runs[name] = (slam, calls, events)
+    (j, jc, je), (t, tc, te) = runs["jax"], runs["port"]
+    assert jc == tc
+    kinds = [c[0] for c in tc]
+    assert kinds.count("pgo") >= 3 and tc[-1] == ("pgo", 0)
+    assert any(c[0] == "pgo" and c[1] > 0 for c in tc)  # a windowed PGO
+    assert any(c[0] == "links" and len(c[2]) >= 12 for c in tc)  # a filled batch
+    assert je == te
+    assert [(e.fid1, e.fid2, e.edge_type) for e in j.edges] == \
+        [(e.fid1, e.fid2, e.edge_type) for e in t.edges]
+    assert any(e.edge_type == "falign-local" for e in t.edges)
+    assert any(not e["accepted"] for e in te)
+
+
+def test_vo_and_mapping_threads_end_to_end():
+    """vo_thread + mapping_thread on the CPU at 72x96: both threads end, every
+    pose is finite, local links are accepted, the final global PGO ran, and
+    the trajectory keeps its shape (test_slam_mono_vo_trajectory's gates)."""
+    poses, flows, depth0, Ts = _make_sequence(10, tx=0.3, flow_noise=0.05)
+    K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], np.float32)
+    slam = TSLAM(mode="mono", device="cpu")
+    slam.voldor_user_config = USER_CONFIG
+    slam.set_cam_params(FX, FY, CX, CY)
+    slam.flows = [flows[i] for i in range(flows.shape[0])]
+    slam.N_FRAMES = flows.shape[0] + 1
+    slam.h, slam.w = H, W
+    slam.flow_loader_pt = flows.shape[0]
+    slam.images_grayf = [_texture(K, T, plane_depth(K, T[:3, :3], T[:3, 3], PLANES, H, W))
+                         for T in Ts]
+    slam.image_loader_pt = len(slam.images_grayf)
+    slam.mp_link_visibility_thresh = 0.6
+    events = []
+    slam.metrics.log = lambda event, **k: events.append(dict(event=event, **k))
+    vo = threading.Thread(target=slam.vo_thread, daemon=True)
+    mp = threading.Thread(target=slam.mapping_thread, daemon=True)
+    vo.start()
+    mp.start()
+    vo.join(timeout=300)
+    mp.join(timeout=300)
+    assert not vo.is_alive() and not mp.is_alive()
+    assert all(np.isfinite(f.Tcw).all() for f in slam.frames)
+    assert any(e.edge_type == "falign-local" for e in slam.edges)
+    pgo = [e for e in events if e["event"] == "pgo"]
+    assert pgo and pgo[-1]["fid_start"] == 0
+    _check_trajectory(slam, Ts)

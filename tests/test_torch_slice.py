@@ -176,7 +176,8 @@ def test_port_imports_no_jax():
         "import sys, voldor_tpu_torch, voldor_tpu_torch.convert, voldor_tpu_torch.vo.api, "
         "voldor_tpu_torch.utils.evaluation, voldor_tpu_torch.slam.system, "
         "voldor_tpu_torch.ops.covis, voldor_tpu_torch.utils.flow_io, voldor_tpu_torch.ops._build, "
-        "voldor_tpu_torch.ops.fb_smooth, voldor_tpu_torch.ops.cost; "
+        "voldor_tpu_torch.ops.fb_smooth, voldor_tpu_torch.ops.cost, voldor_tpu_torch.falign.api, "
+        "voldor_tpu_torch.pgo.api, voldor_tpu_torch.pgo.reduce, voldor_tpu_torch.pgo.g2o; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'voldor_tpu' or m.startswith('voldor_tpu.')]; "
         "assert not bad, bad; print('clean')"

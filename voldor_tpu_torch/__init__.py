@@ -4,12 +4,15 @@ Mirrors ``voldor_tpu``'s module paths and function names; the JAX package
 is the reference it is tested against. This package imports torch and
 numpy, never jax and nothing from ``voldor_tpu``.
 
-Ported so far: the SLAM layer's VO (``VOLDOR_SLAM(mode="mono" | "stereo")
-.process_vo``, from ``slam/system.py``) over the VO window entry points
-(``voldor``, ``voldor_dispatch``), whose depth rounds score their proposals
-with the hand-written CUDA cost kernel in ``csrc/cost_kernel.cu``. Frame
-alignment, pose-graph optimisation, loop closure and the mapping thread
-are not ported yet.
+Ported so far: the SLAM layer (``VOLDOR_SLAM(mode="mono" | "stereo")``
+from ``slam/system.py``: ``process_vo`` / ``vo_thread`` and the mapping
+half, ``mapping_thread`` with its frame-alignment links and ``solve_pgo``)
+over the VO window entry points (``voldor``, ``voldor_dispatch``), frame
+alignment (``falign``, ``falign.api.falign_pairs``) and pose-graph
+optimisation (``pgo``). The VO depth rounds run the hand-written CUDA
+kernels in ``csrc/``. Still raising ``NotImplementedError``: loop closure,
+the demo's file loaders, ``mode="mono-scaled"`` and the options of ROADMAP
+queue A item 7.
 
 Without a ``device`` argument the port runs on the CUDA device and raises
 when there is none; CPU callers pass ``device="cpu"``.
@@ -45,8 +48,12 @@ def voldor_dispatch(*args, **kwargs):
 
 
 def falign(*args, **kwargs):
-    raise NotImplementedError("falign is not ported yet (ROADMAP queue A: falign/*)")
+    from voldor_tpu_torch.falign.api import falign as _falign
+
+    return _falign(*args, **kwargs)
 
 
 def pgo(*args, **kwargs):
-    raise NotImplementedError("pgo is not ported yet (ROADMAP queue A: pgo/*)")
+    from voldor_tpu_torch.pgo.api import pgo as _pgo
+
+    return _pgo(*args, **kwargs)

@@ -1,8 +1,12 @@
-"""Batched SO(3) / SE(3) math (port of ``voldor_tpu/ops/lie.py:26-160``).
+"""Batched SO(3) / SE(3) / quaternion math (port of ``voldor_tpu/ops/lie.py``).
 
 All functions broadcast over leading batch dimensions. Conventions match
 the JAX package: rvec is axis-angle, pose6 is ``[rvec(3), tvec(3)]`` with
 ``p_cam2 = R(rvec) @ p_cam1 + t``, quaternions are Hamilton ``[w, x, y, z]``.
+
+Singularities are guarded with ``torch.where`` exactly as the JAX package
+guards them: the branch that is not selected may compute 0/0, so forward
+mode (``torch.func.jacfwd``) is the way to differentiate through them.
 """
 
 from __future__ import annotations
@@ -25,6 +29,14 @@ def _hat(v: torch.Tensor) -> torch.Tensor:
     )
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b over the last axis, with broadcasting (written out: it also
+    runs under torch.func's forward mode and vmap)."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
 def so3_exp(rvec: torch.Tensor) -> torch.Tensor:
     """Axis-angle -> rotation matrix (Rodrigues). (..., 3) -> (..., 3, 3)."""
     theta2 = torch.sum(rvec * rvec, dim=-1, keepdim=True)[..., None]
@@ -35,6 +47,77 @@ def so3_exp(rvec: torch.Tensor) -> torch.Tensor:
     K = _hat(rvec)
     eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device).expand(K.shape)
     return eye + a * K + b * (K @ K)
+
+
+def rotate_rvec(p: torch.Tensor, rvec: torch.Tensor) -> torch.Tensor:
+    """Rotate points by an axis-angle vector without building R
+    (``lie.py:91``). p, rvec: (..., 3), broadcast."""
+    theta2 = torch.sum(rvec * rvec, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS))
+    small = theta2 < 1e-12
+    safe_theta = torch.where(small, 1.0, theta)
+    w = rvec / safe_theta
+    # the trig runs before any indexing: torch.func's forward mode gives a
+    # float64 tangent to a scalar product of an indexed zero tangent
+    cos_t = torch.where(small, 1.0, torch.cos(theta))
+    sin_t = torch.where(small, 0.0, torch.sin(theta))
+    w_cross_p = cross(w, p)
+    w_dot_p = torch.sum(w * p, dim=-1, keepdim=True)
+    rotated = p * cos_t + w_cross_p * sin_t + w * w_dot_p * (1.0 - cos_t)
+    linear = p + cross(rvec, p)
+    return torch.where(small, linear, rotated)
+
+
+def so3_right_jacobian(rvec: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian J_r of SO(3) (``lie.py:113``): exp((r+d)^) =
+    exp(r^) exp((J_r(r) d)^). (..., 3) -> (..., 3, 3)."""
+    theta2 = torch.sum(rvec * rvec, dim=-1, keepdim=True)[..., None]
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS))
+    small = theta2 < 1e-8
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    K = _hat(rvec)
+    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device).expand(K.shape)
+    return eye - b * K + c * (K @ K)
+
+
+def quat_from_rvec(rvec: torch.Tensor) -> torch.Tensor:
+    """Axis-angle -> unit quaternion [w,x,y,z] (``lie.py:171``)."""
+    theta2 = torch.sum(rvec * rvec, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp_min(theta2, _EPS))
+    small = theta2 < 1e-12
+    k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(0.5 * theta) / theta)
+    w = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(0.5 * theta))
+    return torch.cat([w, rvec * k], dim=-1)
+
+
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product, [w,x,y,z]."""
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Rotate points p (..., 3) by unit quaternion q (..., 4) [w,x,y,z]."""
+    w = q[..., 0:1]
+    v = q[..., 1:]
+    uv = cross(v, p)
+    uuv = cross(v, uv)
+    return p + 2.0 * (w * uv + uuv)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:

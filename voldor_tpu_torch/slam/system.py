@@ -1,20 +1,23 @@
-"""VOLDOR_SLAM: the SLAM orchestrator of the port, its VO layer so far
-(port of ``voldor_tpu/slam/system.py:39-881, 1120-1166``).
+"""VOLDOR_SLAM: the SLAM orchestrator of the port (port of
+``voldor_tpu/slam/system.py``).
 
 Same attributes, thresholds and mode configs as the JAX package's
 ``VOLDOR_SLAM``, plus a ``device`` keyword: the frame/edge graph,
 covisibility-gated VO stepping from on-device scores, temporal and spatial
-keyframes, and the pipelined window dispatch (one window in flight across
-``process_vo`` calls, invalidated by ``_map_version``).
+keyframes, the pipelined window dispatch (one window in flight across
+``process_vo`` calls, invalidated by ``_map_version``), and the mapping
+half: frame-alignment links (``establish_*`` over ``falign_pairs``), the
+priority-matrix ``mapping_thread`` and ``solve_pgo`` over ``pgo``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): frame alignment links and PGO (``solve_pgo``, ``establish_*``,
-``mapping_thread``), loop closure, the file loaders of the demo, and the
-``mono-scaled`` mode.
+item): loop closure (``enable_loop_closure``: ORB retrieval needs cv2), the
+file loaders of the demo, and the ``mono-scaled`` mode. The TPU compile
+warm-up thread of the JAX package's mapping thread has no counterpart.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -22,6 +25,9 @@ import numpy as np
 import torch
 
 from voldor_tpu_torch.config import VoldorConfig
+from voldor_tpu_torch.falign import api as falign_api
+from voldor_tpu_torch.ops.image import gaussian_blur
+from voldor_tpu_torch.pgo import api as pgo_api
 from voldor_tpu_torch.slam.frame import Edge, Frame
 from voldor_tpu_torch.slam.rwlock import RWLock
 from voldor_tpu_torch.slam.slam_utils import R_to_rvec, T6_to_T44, T44_to_T6, polish_T44
@@ -112,6 +118,7 @@ class VOLDOR_SLAM:
         self._map_version = 0
         self._block_vo_signal = False
         self._map_lock = RWLock()
+        self._map_stream = None  # the mapping thread's CUDA stream while it runs
         self._viewer_signal_map_changed = False
         self.show_debug = False
 
@@ -243,22 +250,227 @@ class VOLDOR_SLAM:
 
     # ------------------------------------------------------------------
     def enable_loop_closure(self, voc_path=None, retriever=None):
-        _not_ported("loop closure", "6 (full SLAM)")
+        # ORB retrieval and the geometry check need cv2 (system.py:395-432)
+        _not_ported("loop closure", "6 (loop closure)")
+
+    def _mapping_stream(self):
+        """Context for the mapping thread's device work: its own CUDA stream
+        while mapping_thread runs on a card (so a VO host sync does not wait
+        for queued falign/PGO kernels), a no-op otherwise. Inputs are host
+        numpy arrays read before entering it: nothing inside reads a tensor
+        that the VO thread produced on its stream."""
+        if self._map_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._map_stream)
 
     def solve_pgo(self, fid_start=0):
-        _not_ported("solve_pgo", "5 (pgo/*)")
+        """(voldor_slam.py:361-414; system.py:435-525) The graph is
+        snapshot under the write lock, solved with no lock held, and applied
+        under a short write lock. Frames the VO thread appended during the
+        solve chain off the last snapshot frame by pure VO edges, so they
+        and Twc_cur are rebased by that frame's world-frame correction;
+        _map_version invalidates in-flight VO priors built on the old map."""
+        with self._map_lock.w_locked():
+            n_frames_total = len(self.frames) + 1  # +1 for Twc_cur
+            n_edges_total = len(self.edges)
+            n_frames = n_frames_total - fid_start
+            if n_frames <= 0:
+                return
+            poses_idx = np.zeros(n_frames, np.int32)
+            poses = np.zeros((n_frames, 7), np.float32)
+            edges_idx = np.zeros((n_edges_total, 2), np.int32)
+            edges_pose = np.zeros((n_edges_total, 7), np.float32)
+            edges_covar = np.zeros((n_edges_total, 7, 7), np.float32)
+
+            for i in range(fid_start, n_frames_total - 1):
+                poses_idx[i - fid_start] = i
+                poses[i - fid_start, :6] = T44_to_T6(self.frames[i].Tcw)
+                poses[i - fid_start, 6] = np.log(self.frames[i].scale)
+            poses_idx[n_frames - 1] = n_frames_total - 1
+            poses[n_frames - 1, :6] = T44_to_T6(np.linalg.inv(self.Twc_cur))
+            poses[n_frames - 1, 6] = np.log(self.frames[n_frames_total - 2].scale)
+
+            n_edges = 0
+            for e in self.edges:
+                if fid_start <= e.fid1 < n_frames_total and fid_start <= e.fid2 < n_frames_total:
+                    edges_idx[n_edges] = [e.fid1, e.fid2]
+                    edges_pose[n_edges] = e.pose
+                    edges_covar[n_edges] = e.pose_covar
+                    n_edges += 1
+            if n_edges == 0:
+                return
+
+        t_solve = time.perf_counter()
+        with self._mapping_stream():
+            poses_ret = pgo_api.pgo(
+                poses=poses, poses_idx=poses_idx, edges_idx=edges_idx[:n_edges],
+                edges_pose=edges_pose[:n_edges], edges_covar=edges_covar[:n_edges],
+                optimize_7dof=self.mode == "mono", device=self.device,
+            )
+        t_solve = time.perf_counter() - t_solve
+
+        with self._map_lock.w_locked():
+            last = n_frames_total - 2  # last real frame in the snapshot
+            # world-frame correction of the last snapshot frame against its
+            # current pose: frames appended since are relative to it
+            Tcw_last_new = T6_to_T44(poses_ret[n_frames - 2, :6]).astype(np.float32)
+            D = Tcw_last_new @ np.linalg.inv(self.frames[last].Tcw)
+            ds = float(np.exp(poses_ret[n_frames - 2, 6])) / self.frames[last].scale
+
+            for i in range(n_frames - 1):
+                self.frames[i + fid_start].Tcw = T6_to_T44(poses_ret[i, :6]).astype(np.float32)
+                self.frames[i + fid_start].scale = float(np.exp(poses_ret[i, 6]))
+            for i in range(n_frames_total - 1, len(self.frames)):
+                self.frames[i].Tcw = (D @ self.frames[i].Tcw).astype(np.float32)
+                self.frames[i].scale = float(self.frames[i].scale * ds)
+            # rebase the live camera by the same correction
+            self.Twc_cur = np.linalg.inv(D @ np.linalg.inv(self.Twc_cur)).astype(np.float32)
+            self._map_version += 1
+            print(f"solve pgo {fid_start}-{n_frames_total}, n_frames={n_frames}, n_edges={n_edges}")
+            self.metrics.log(
+                "pgo", fid_start=int(fid_start), n_frames=int(n_frames),
+                n_edges=int(n_edges), solve_s=round(t_solve, 4),
+            )
+
+    # ------------------------------------------------------------------
+    def _gblur(self, img, k):
+        """The SLAM layer's Gaussian blur (system.py:912): the port's own
+        separable blur, with cv2.GaussianBlur's kernel and borders, on the
+        host."""
+        return gaussian_blur(torch.from_numpy(np.ascontiguousarray(img, np.float32)), k).numpy()
 
     def establish_local_links(self, kf_ids):
-        _not_ported("frame-alignment links", "4 (falign/*)")
-
-    def establish_links_batch(self, pair_list, kind="local"):
-        _not_ported("frame-alignment links", "4 (falign/*)")
+        """(voldor_slam.py:538-594)"""
+        self.establish_links_batch([tuple(kf_ids)], kind="local")
 
     def establish_lc_links(self, kf_ids):
-        _not_ported("loop-closure links", "4 (falign/*) and 6 (full SLAM)")
+        """(voldor_slam.py:597-675) two-stage: geometry only, then
+        photometric; mono normalises the depth medians to 10."""
+        self.establish_links_batch([tuple(kf_ids)], kind="lc")
 
-    def mapping_thread(self):
-        _not_ported("the mapping thread", "6 (full SLAM)")
+    def establish_links_batch(self, pair_list, kind="local"):
+        """Solve many independent 2-keyframe link problems as the lanes of
+        one falign_pairs batch (system.py:928-1091): same per-pair gates,
+        metrics events and edges as one problem at a time.
+
+        kind: 'local' (one photo + geo stage, pose init from the current
+        map) or 'lc' (geometry, then photometric from its result, identity
+        init, mono median-10 depth normalisation)."""
+        if not pair_list:
+            return
+        is_lc = kind == "lc"
+        stride = self.falign_lc_link_stride if is_lc else self.falign_local_link_stride
+        d_blur = self.falign_lc_depth_gblur_width if is_lc else self.falign_local_depth_gblur_width
+        i_blur = self.falign_lc_image_gblur_width if is_lc else self.falign_local_image_gblur_width
+        P = len(pair_list)
+
+        with self._map_lock.r_locked():
+            # every map is read here, on the host (Frame.depth copies a
+            # device map on this thread's current stream), before any
+            # device work of the mapping stream starts
+            depths, weights, poses_init, images, scalings = [], [], [], [], []
+            for kf_ids in pair_list:
+                if is_lc:
+                    print("Loop closure at ", list(kf_ids))
+                for fid in kf_ids:
+                    depth = self.frames[fid].get_scaled_depth()
+                    if is_lc and self.mode == "mono":
+                        sc = 10 / np.median(depth)
+                        depth = depth * sc
+                        scalings.append(sc)
+                    elif is_lc:
+                        scalings.append(1.0)
+                    depths.append(self._gblur(depth, d_blur))
+                    weights.append(self.frames[fid].depth_conf)
+                    if not is_lc:
+                        poses_init.append(T44_to_T6(
+                            np.linalg.inv(self.frames[kf_ids[0]].Tcw) @ self.frames[fid].Tcw))
+                    if self.use_image_info:
+                        if not self.image_loader_sync(fid):
+                            raise RuntimeError("Image loader not working or files are missing.")
+                        images.append(self._gblur(self.images_grayf[fid], i_blur))
+
+            def shape_pairs(lst):
+                return np.stack(lst).reshape(P, 2, *lst[0].shape)
+
+            kwargs = dict(
+                depths=shape_pairs(depths), fx=self.fx, fy=self.fy, cx=self.cx, cy=self.cy,
+                weights=shape_pairs(weights), optimize_7dof=self.mode == "mono",
+                stride=stride, vbf=self.basefocal * self.falign_vbf_factor,
+                crw=self.falign_crw, device=self.device,
+            )
+
+            def add_c2f(kw):
+                # coarse-to-fine only on photometric solves (system.py:1029-1039)
+                if (self.falign_coarse_stride and self.falign_coarse_stride > stride
+                        and "images" in kw):
+                    kw["coarse_stride"] = self.falign_coarse_stride
+                    kw["fine_iters"] = self.falign_fine_iters
+                return kw
+
+            with self._mapping_stream():
+                if is_lc:
+                    rets = falign_api.falign_pairs(**kwargs)  # stage 1: geometry only
+                    if self.use_image_info:
+                        kwargs["images"] = shape_pairs(images)
+                        kwargs["poses_init"] = np.stack([r["poses_ret"] for r in rets])
+                        rets = falign_api.falign_pairs(**add_c2f(kwargs))  # stage 2: photo
+                else:
+                    kwargs["poses_init"] = np.stack(poses_init).astype(np.float32).reshape(P, 2, 6)
+                    if self.use_image_info:
+                        kwargs["images"] = shape_pairs(images)
+                    rets = falign_api.falign_pairs(**add_c2f(kwargs))
+
+            c_thr = self.lc_link_consistency_thresh if is_lc else self.mp_link_consistency_thresh
+            v_thr = self.lc_link_visibility_thresh if is_lc else self.mp_link_visibility_thresh
+            for i, kf_ids in enumerate(pair_list):
+                sub = rets[i]
+                consistency = np.nanmean(sub["consistency_mat"])
+                visibility = np.nanmean(sub["visibility_mat"])
+                gate_cv = consistency < c_thr or visibility < v_thr
+                gate_rank = not gate_cv and bool(np.any(
+                    np.linalg.matrix_rank(sub["poses_covar"].astype(np.float64))
+                    != sub["poses_covar"].shape[1]))
+                self.metrics.log(
+                    "lc_link" if is_lc else "local_link",
+                    kf_ids=[int(k) for k in kf_ids],
+                    consistency=round(float(consistency), 4),
+                    visibility=round(float(visibility), 4),
+                    accepted=not (gate_cv or gate_rank),
+                    rejected_by="consistency/visibility" if gate_cv
+                                else ("covar_rank" if gate_rank else None),
+                )
+                if is_lc:
+                    tag = ", rejected" if (gate_cv or gate_rank) else ""
+                    print(f"Loop closure registration score = "
+                          f"{consistency:.4f} / {visibility:.4f}{tag}")
+                if gate_cv or gate_rank:
+                    continue
+                med = scalings[2 * i: 2 * i + 2] if is_lc and self.mode == "mono" else None
+                self._append_falign_edges(
+                    list(kf_ids), sub, edge_type="falign-lc" if is_lc else "falign-local",
+                    median_scaling=med)
+
+    def _append_falign_edges(self, kf_ids, falign_ret, edge_type, median_scaling=None):
+        """(system.py:1093-1112)"""
+        Tcw = T6_to_T44(falign_ret["poses_ret"])
+        for i1 in range(len(kf_ids) - 1):
+            for i2 in range(i1 + 1, len(kf_ids)):
+                Tc1c2 = np.linalg.inv(Tcw[i2]) @ Tcw[i1]
+                pose7 = np.zeros(7, np.float32)
+                pose7[:6] = T44_to_T6(Tc1c2)
+                sf1 = falign_ret["scaling_factor"][i1]
+                sf2 = falign_ret["scaling_factor"][i2]
+                if median_scaling is not None:
+                    sf1 = sf1 * median_scaling[i1]
+                    sf2 = sf2 * median_scaling[i2]
+                f1_scale = self.frames[kf_ids[i1]].scale * sf1
+                f2_scale = self.frames[kf_ids[i2]].scale * sf2
+                pose7[6] = np.log(f2_scale / f1_scale)
+                self.edges.append(
+                    Edge(kf_ids[i1], kf_ids[i2], pose7, falign_ret["poses_covar"][i2],
+                         pose_eval_time_scale=float(np.sqrt(f1_scale * f2_scale)),
+                         edge_type=edge_type))
 
     # ------------------------------------------------------------------
     def _vo_window_inputs(self):
@@ -559,6 +771,158 @@ class VOLDOR_SLAM:
         self.end_of_vo = True
         print("VO thread ended.")
         print(f"{len(self.kf_ids)} keyframes registered.")
+
+    def mapping_thread(self):
+        """(voldor_slam.py:729-828; system.py:1267-1442) The priority-matrix
+        scheduler: on each keyframe registration, temporal/spatial link
+        priorities over the recent keyframes; links above the realtime
+        threshold are queued and dispatched as one falign batch when
+        mp_link_batch_min are pending, when they are mp_link_max_delay_s
+        old, when a PGO is due, or at the end; a windowed PGO every
+        pgo_refine_kf_interval keyframes that brought new links, a global
+        one at the end. Loop-closure candidates (none while loop closure is
+        off) are linked at once. On a card, the thread's device work runs
+        on its own CUDA stream."""
+        print("Mapping thread started")
+        if self.device.type == "cuda":
+            self._map_stream = torch.cuda.Stream(self.device)
+        try:
+            self._mapping_loop()
+        finally:
+            self._map_stream = None
+        print("Mapping thread end.")
+
+    def _mapping_loop(self):
+        n_kfs_registered = 0
+        next_pgo_kfid = self.pgo_refine_kf_interval
+        # indexed by keyframe ordinals, grown geometrically
+        kf_cap = 256
+        link_mask = np.zeros((kf_cap, kf_cap), bool)
+        priority_mat = np.zeros((kf_cap, kf_cap), np.float32)
+
+        def _ensure_capacity(n):
+            nonlocal kf_cap, link_mask, priority_mat
+            if n <= kf_cap:
+                return
+            while kf_cap < n:
+                kf_cap *= 2
+            lm = np.zeros((kf_cap, kf_cap), bool)
+            pm = np.zeros((kf_cap, kf_cap), np.float32)
+            lm[: link_mask.shape[0], : link_mask.shape[1]] = link_mask
+            pm[: priority_mat.shape[0], : priority_mat.shape[1]] = priority_mat
+            link_mask, priority_mat = lm, pm
+
+        lc_pairs = set()
+        new_local_link_flag = False
+        new_lc_link_flag = False
+        n_lc_seen = 0
+
+        def _merge_lc_candidates(n_kfs_cur):
+            # also called from the idle branch: a candidate found by the last
+            # keyframe may land after its registration pass (system.py:1301)
+            nonlocal n_lc_seen
+            updated = False
+            for f1, f2 in self.lc_candidates[:]:
+                for ff1, ff2 in [(f1, f2), (f1 + 1, f2), (f1 - 1, f2), (f1, f2 + 1), (f1, f2 - 1)]:
+                    if 0 <= ff1 < n_kfs_cur and 0 <= ff2 < n_kfs_cur:
+                        pri = np.exp(-((abs(ff1 - f1) + abs(ff2 - f2)) / self.mp_lc_sigma) ** 2)
+                        if not link_mask[ff1, ff2] and pri > priority_mat[ff1, ff2]:
+                            priority_mat[ff1, ff2] = pri
+                            updated = True
+                        lc_pairs.add((ff1, ff2))
+            n_lc_seen = len(self.lc_candidates)
+            return updated
+
+        # local links coalesce across registrations (system.py:1327-1336)
+        pending_local: list = []
+        pending_since = [0.0]
+
+        def _process_pending(thresh, flush=False):
+            nonlocal new_local_link_flag, new_lc_link_flag
+            Iy, Ix = np.where((priority_mat > thresh) & ~link_mask)
+            lc_pair_list = []
+            for y, x in zip(Iy, Ix):
+                pair = (self.kf_ids[y], self.kf_ids[x])
+                if (int(y), int(x)) in lc_pairs:
+                    lc_pair_list.append(pair)
+                else:
+                    if not pending_local:
+                        pending_since[0] = time.perf_counter()
+                    pending_local.append(pair)
+                link_mask[y, x] = True
+                priority_mat[y, x] = 0
+            ran = False
+            if lc_pair_list:
+                self.establish_links_batch(lc_pair_list, kind="lc")
+                new_lc_link_flag = True
+                ran = True
+            aged = (pending_local
+                    and time.perf_counter() - pending_since[0] > self.mp_link_max_delay_s)
+            if pending_local and (flush or aged or len(pending_local) >= self.mp_link_batch_min):
+                self.establish_links_batch(pending_local, kind="local")
+                pending_local.clear()
+                new_local_link_flag = True
+                ran = True
+            return ran
+
+        while not self.end_of_vo or n_kfs_registered < len(self.kf_ids):
+            n_kfs_cur = len(self.kf_ids)
+            if n_kfs_cur == 0:
+                time.sleep(0.01)
+                continue
+            _ensure_capacity(n_kfs_cur)
+
+            if n_kfs_registered == n_kfs_cur:
+                if n_lc_seen < len(self.lc_candidates):
+                    _merge_lc_candidates(n_kfs_cur)
+                if not _process_pending(self.mp_no_link_thresh, flush=self.end_of_vo):
+                    time.sleep(0.01)
+            else:
+                # VO blocks only for the registration bookkeeping; the link
+                # solves and the PGO run with VO live
+                self._block_vo_signal = True
+                priority_mat[...] = 0
+
+                if not self.disable_local_mapping:
+                    for f1 in range(max(0, n_kfs_cur - 2 * self.mp_temporal_sigma), n_kfs_cur):
+                        for f2 in range(f1 + 1, min(n_kfs_cur, f1 + 2 * self.mp_spatial_sigma)):
+                            priority_mat[f1, f2] = max(
+                                priority_mat[f1, f2],
+                                np.exp(
+                                    -((f1 - f2) / self.mp_spatial_sigma) ** 2
+                                    - ((n_kfs_cur - f1) * (n_kfs_cur - f2)
+                                       / self.mp_temporal_sigma**2)
+                                ),
+                            )
+
+                _merge_lc_candidates(n_kfs_cur)
+
+                priority_mat[link_mask] = 0
+                n_kfs_registered = n_kfs_cur
+                self._block_vo_signal = False
+
+                pgo_due = n_kfs_cur >= next_pgo_kfid
+                _process_pending(self.mp_realtime_link_thresh, flush=pgo_due)
+
+                if pgo_due and (new_local_link_flag or new_lc_link_flag):
+                    if new_lc_link_flag:
+                        self.solve_pgo()
+                    else:
+                        self.solve_pgo(self.kf_ids[
+                            0 if self.pgo_local_kf_winsize > n_kfs_cur
+                            else -self.pgo_local_kf_winsize])
+                    self._viewer_signal_map_changed = True
+                    new_local_link_flag = False
+                    new_lc_link_flag = False
+                    next_pgo_kfid = n_kfs_cur + self.pgo_refine_kf_interval
+
+        # drain the remaining above-threshold links before the final global
+        # PGO (system.py:1432-1438)
+        _merge_lc_candidates(len(self.kf_ids))
+        _process_pending(self.mp_no_link_thresh, flush=True)
+
+        self.solve_pgo()
+        self._viewer_signal_map_changed = True
 
 
 def _quat_xyzw_from_R(R):
