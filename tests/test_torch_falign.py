@@ -271,6 +271,28 @@ def test_one_lm_step_matches_jax(wedge, dof7):
     assert bool(tout.done[0]) == bool(jout[6]) and int(tout.it[0]) == int(jout[5]) == 1
 
 
+def test_lm_iterations_make_no_host_round_trip(wedge):
+    """On a card, each of these ops syncs with the host: a Python value
+    stored into a tensor (aten::lift_fresh), a value read back
+    (aten::_local_scalar_dense, aten::nonzero) and a batched cholesky_solve.
+    None may run inside a chunk of LM iterations: the lanes' done flags are
+    read once per chunk, by solve_lanes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dim_mask = tapi._dim_mask(2, True, True)
+    gU = np.zeros((1, 18), np.float32)
+    gU[0, 6] = gU[0, 15] = 1.0
+    prob = _tprob(wedge["tm"], True, dim_mask, gU)
+    lanes = torch.zeros(1, dtype=torch.int64)
+    st = tsol.phase_init(prob, _t(wedge["params"])[None], lanes, 2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = tsol.lm_iterate(prob, st, lanes, 2, 3)
+    names = {e.name for e in prof.events()}
+    assert int(out.it[0]) == 3 and "aten::linalg_cholesky_ex" in names
+    assert not names & {"aten::lift_fresh", "aten::_local_scalar_dense", "aten::nonzero",
+                        "aten::cholesky_solve"}
+
+
 # --------------------------------------------------------------------------
 # whole solves
 # --------------------------------------------------------------------------

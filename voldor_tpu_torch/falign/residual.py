@@ -250,8 +250,9 @@ def pair_residual_and_grads(params_ref, params_tar, ref_fid, tar_fid, maps: Fram
     zeros = torch.zeros_like(zt)
     au = torch.stack([fx * inv_zt, zeros, -fx * pt[..., 0] * inv_zt * inv_zt], dim=-1)
     av = torch.stack([zeros, fy * inv_zt, -fy * pt[..., 1] * inv_zt * inv_zt], dim=-1)
-    ez = torch.zeros(3, dtype=pt.dtype, device=pt.device)  # built on the device:
-    ez[2] = 1.0  # a tensor from a Python list is a host-to-device copy and a sync
+    # built on the device: a tensor from a Python list, or a Python scalar
+    # stored into one, is a host-to-device copy and a host sync
+    ez = torch.eye(3, dtype=pt.dtype, device=pt.device)[2]
 
     sd_u, sd_v = s_u[..., 0], s_v[..., 0]
     n_u, n_v = s_u[..., 1:4], s_v[..., 1:4]

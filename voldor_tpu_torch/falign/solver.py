@@ -171,7 +171,10 @@ def lm_body(prob: LaneProblem, st: PairLmState, lanes, stride: int) -> PairLmSta
     Lc, info = torch.linalg.cholesky_ex(damped)
     ok = (info == 0) & torch.isfinite(Lc).all(dim=(-2, -1))
     Lsafe = torch.where(ok[:, None, None], Lc, _diag_embed_eye(L, D, Lc))
-    step = torch.cholesky_solve(gg[..., None], Lsafe)[..., 0]
+    # two triangular solves: a batched cholesky_solve syncs with the host on
+    # a card (tools/profile_torch_mapping.py)
+    half = torch.linalg.solve_triangular(Lsafe, gg[..., None], upper=False)
+    step = torch.linalg.solve_triangular(Lsafe.transpose(-1, -2), half, upper=True)[..., 0]
     step_m = step.reshape(L, N, 9) * prob.dim_mask
     trial = params - step_m
     trial_cost, H_t, g_t = linearize(prob, trial, lanes, stride)
