@@ -147,35 +147,27 @@ def _accept(prob, trial, lam, cost, new_cost, ok):
     return prob, lam, torch.where(accept, new_cost, cost), done
 
 
-def _one_hots(prob: PgoProblem):
-    """(M, N) one-hot of each edge's begin and end pose, built once per
-    solve."""
-    eye = np.eye(prob.p.shape[0], dtype=np.float32)
-    idx = prob.edges_idx.cpu().numpy()
-    return (torch.as_tensor(eye[idx[:, 0]], device=prob.p.device),
-            torch.as_tensor(eye[idx[:, 1]], device=prob.p.device))
+def _scatter(idx, vals, shape):
+    """zeros(shape) with vals (M, ...) added at rows idx (M,)."""
+    return torch.zeros(shape, dtype=vals.dtype, device=vals.device).index_add_(0, idx, vals)
 
 
-def dense_normal(prob: PgoProblem, S_b, S_e):
-    """(r, H (D, D), g (D,)) with JtJ and the gradient assembled as one-hot
-    matrix products (``solver.py:148``); S_b, S_e from _one_hots."""
+def dense_normal(prob: PgoProblem):
+    """(r, H (D, D), g (D,)): JtJ and the gradient scattered edge by edge
+    into the dense normal equations (``solver.py:148``)."""
     N = prob.p.shape[0]
-    D = N * 7
+    ib, ie = prob.edges_idx[:, 0], prob.edges_idx[:, 1]
     r, J_e, J_b = _edge_res_and_jacs(prob)
-    g = (S_e.T @ torch.einsum("mij,mi->mj", J_e, r)
-         + S_b.T @ torch.einsum("mij,mi->mj", J_b, r))  # (N, 7)
-    ee = torch.einsum("mia,mib->mab", J_e, J_e)
-    bb = torch.einsum("mia,mib->mab", J_b, J_b)
+    J = torch.cat([J_e, J_b])  # (2M, 6|7, 7): end then begin of each edge
+    g = _scatter(torch.cat([ie, ib]), torch.einsum("mij,mi->mj", J, torch.cat([r, r])), (N, 7))
+    JJ = torch.einsum("mia,mib->mab", J, J)
     be = torch.einsum("mia,mib->mab", J_b, J_e)
-    diag_blk = (S_e.T @ ee.reshape(-1, 49) + S_b.T @ bb.reshape(-1, 49)).reshape(N, 7, 7)
-    # cross blocks: Hx[k, a, b] = sum_m be[m, k] S_b[m, a] S_e[m, b]
-    Hx = torch.einsum("mk,ma,mb->kab", be.reshape(-1, 49), S_b, S_e)
-    H = torch.zeros((N, 7, N, 7), dtype=r.dtype, device=r.device)
-    ar = torch.arange(N, device=r.device)
-    H[ar, :, ar, :] = diag_blk
-    Hx = Hx.reshape(7, 7, N, N).permute(2, 0, 3, 1)  # (N, 7, N, 7)
-    H = H + Hx + Hx.permute(2, 3, 0, 1)
-    return r, H.reshape(D, D), g.reshape(D)
+    # the (N, N, 7, 7) blocks in row-major pairs: (i, i) diagonal, (ib, ie)
+    # and its transpose (ie, ib) cross
+    blocks = _scatter(torch.cat([torch.cat([ie, ib]) * (N + 1), ib * N + ie, ie * N + ib]),
+                      torch.cat([JJ, be, be.transpose(1, 2)]), (N * N, 7, 7))
+    H = blocks.reshape(N, N, 7, 7).permute(0, 2, 1, 3).reshape(N * 7, N * 7)
+    return r, H, g.reshape(N * 7)
 
 
 def pgo_solve_dense_jit(prob: PgoProblem, max_iters: int = 100):
@@ -184,10 +176,9 @@ def pgo_solve_dense_jit(prob: PgoProblem, max_iters: int = 100):
     N = prob.p.shape[0]
     D = N * 7
     eye = torch.eye(D, dtype=prob.p.dtype, device=prob.p.device)
-    S_b, S_e = _one_hots(prob)
 
     def body(prob, lam, cost):
-        _, H, g = dense_normal(prob, S_b, S_e)
+        _, H, g = dense_normal(prob)
         diag = torch.diagonal(H)
         # fixed dims have zero rows, columns and gradient: a unit diagonal
         # keeps the factorisation SPD and their step exactly 0
@@ -208,14 +199,11 @@ def pgo_solve_jit(prob: PgoProblem, max_iters: int = 100, cg_iters: int = 60):
     N = prob.p.shape[0]
     ib, ie = prob.edges_idx[:, 0], prob.edges_idx[:, 1]
 
-    def scatter(idx, vals, shape):
-        return torch.zeros(shape, dtype=vals.dtype, device=vals.device).index_add_(0, idx, vals)
-
     def hvp(J_e, J_b, lam_diag, v):
         """(JtJ + lam*D) v over the edges, v: (N, 7)."""
         Jv = torch.einsum("mij,mj->mi", J_e, v[ie]) + torch.einsum("mij,mj->mi", J_b, v[ib])
-        out = (scatter(ie, torch.einsum("mij,mi->mj", J_e, Jv), v.shape)
-               + scatter(ib, torch.einsum("mij,mi->mj", J_b, Jv), v.shape))
+        out = (_scatter(ie, torch.einsum("mij,mi->mj", J_e, Jv), v.shape)
+               + _scatter(ib, torch.einsum("mij,mi->mj", J_b, Jv), v.shape))
         return out + lam_diag * v
 
     def cg(J_e, J_b, lam_diag, precond, g):
@@ -238,10 +226,10 @@ def pgo_solve_jit(prob: PgoProblem, max_iters: int = 100, cg_iters: int = 60):
 
     def body(prob, lam, cost):
         r, J_e, J_b = _edge_res_and_jacs(prob)
-        g = (scatter(ie, torch.einsum("mij,mi->mj", J_e, r), (N, 7))
-             + scatter(ib, torch.einsum("mij,mi->mj", J_b, r), (N, 7)))
-        blk = (scatter(ie, torch.einsum("mia,mib->mab", J_e, J_e), (N, 7, 7))
-               + scatter(ib, torch.einsum("mia,mib->mab", J_b, J_b), (N, 7, 7)))
+        g = (_scatter(ie, torch.einsum("mij,mi->mj", J_e, r), (N, 7))
+             + _scatter(ib, torch.einsum("mij,mi->mj", J_b, r), (N, 7)))
+        blk = (_scatter(ie, torch.einsum("mia,mib->mab", J_e, J_e), (N, 7, 7))
+               + _scatter(ib, torch.einsum("mia,mib->mab", J_b, J_b), (N, 7, 7)))
         diag = torch.clamp(torch.diagonal(blk, dim1=-2, dim2=-1), 1e-6, 1e32)
         lam_diag = lam * diag
         # block-Jacobi preconditioner: inv(blk + lam*diag + fixed-dim eye)

@@ -17,7 +17,6 @@ warm-up thread of the JAX package's mapping thread has no counterpart.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 
@@ -118,7 +117,6 @@ class VOLDOR_SLAM:
         self._map_version = 0
         self._block_vo_signal = False
         self._map_lock = RWLock()
-        self._map_stream = None  # the mapping thread's CUDA stream while it runs
         self._viewer_signal_map_changed = False
         self.show_debug = False
 
@@ -253,16 +251,6 @@ class VOLDOR_SLAM:
         # ORB retrieval and the geometry check need cv2 (system.py:395-432)
         _not_ported("loop closure", "6 (loop closure)")
 
-    def _mapping_stream(self):
-        """Context for the mapping thread's device work: its own CUDA stream
-        while mapping_thread runs on a card (so a VO host sync does not wait
-        for queued falign/PGO kernels), a no-op otherwise. Inputs are host
-        numpy arrays read before entering it: nothing inside reads a tensor
-        that the VO thread produced on its stream."""
-        if self._map_stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self._map_stream)
-
     def solve_pgo(self, fid_start=0):
         """(voldor_slam.py:361-414; system.py:435-525) The graph is
         snapshot under the write lock, solved with no lock held, and applied
@@ -301,12 +289,11 @@ class VOLDOR_SLAM:
                 return
 
         t_solve = time.perf_counter()
-        with self._mapping_stream():
-            poses_ret = pgo_api.pgo(
-                poses=poses, poses_idx=poses_idx, edges_idx=edges_idx[:n_edges],
-                edges_pose=edges_pose[:n_edges], edges_covar=edges_covar[:n_edges],
-                optimize_7dof=self.mode == "mono", device=self.device,
-            )
+        poses_ret = pgo_api.pgo(
+            poses=poses, poses_idx=poses_idx, edges_idx=edges_idx[:n_edges],
+            edges_pose=edges_pose[:n_edges], edges_covar=edges_covar[:n_edges],
+            optimize_7dof=self.mode == "mono", device=self.device,
+        )
         t_solve = time.perf_counter() - t_solve
 
         with self._map_lock.w_locked():
@@ -365,9 +352,6 @@ class VOLDOR_SLAM:
         P = len(pair_list)
 
         with self._map_lock.r_locked():
-            # every map is read here, on the host (Frame.depth copies a
-            # device map on this thread's current stream), before any
-            # device work of the mapping stream starts
             depths, weights, poses_init, images, scalings = [], [], [], [], []
             for kf_ids in pair_list:
                 if is_lc:
@@ -408,18 +392,17 @@ class VOLDOR_SLAM:
                     kw["fine_iters"] = self.falign_fine_iters
                 return kw
 
-            with self._mapping_stream():
-                if is_lc:
-                    rets = falign_api.falign_pairs(**kwargs)  # stage 1: geometry only
-                    if self.use_image_info:
-                        kwargs["images"] = shape_pairs(images)
-                        kwargs["poses_init"] = np.stack([r["poses_ret"] for r in rets])
-                        rets = falign_api.falign_pairs(**add_c2f(kwargs))  # stage 2: photo
-                else:
-                    kwargs["poses_init"] = np.stack(poses_init).astype(np.float32).reshape(P, 2, 6)
-                    if self.use_image_info:
-                        kwargs["images"] = shape_pairs(images)
-                    rets = falign_api.falign_pairs(**add_c2f(kwargs))
+            if is_lc:
+                rets = falign_api.falign_pairs(**kwargs)  # stage 1: geometry only
+                if self.use_image_info:
+                    kwargs["images"] = shape_pairs(images)
+                    kwargs["poses_init"] = np.stack([r["poses_ret"] for r in rets])
+                    rets = falign_api.falign_pairs(**add_c2f(kwargs))  # stage 2: photo
+            else:
+                kwargs["poses_init"] = np.stack(poses_init).astype(np.float32).reshape(P, 2, 6)
+                if self.use_image_info:
+                    kwargs["images"] = shape_pairs(images)
+                rets = falign_api.falign_pairs(**add_c2f(kwargs))
 
             c_thr = self.lc_link_consistency_thresh if is_lc else self.mp_link_consistency_thresh
             v_thr = self.lc_link_visibility_thresh if is_lc else self.mp_link_visibility_thresh
@@ -781,15 +764,9 @@ class VOLDOR_SLAM:
         old, when a PGO is due, or at the end; a windowed PGO every
         pgo_refine_kf_interval keyframes that brought new links, a global
         one at the end. Loop-closure candidates (none while loop closure is
-        off) are linked at once. On a card, the thread's device work runs
-        on its own CUDA stream."""
+        off) are linked at once."""
         print("Mapping thread started")
-        if self.device.type == "cuda":
-            self._map_stream = torch.cuda.Stream(self.device)
-        try:
-            self._mapping_loop()
-        finally:
-            self._map_stream = None
+        self._mapping_loop()
         print("Mapping thread end.")
 
     def _mapping_loop(self):
