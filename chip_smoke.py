@@ -16,7 +16,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    maps: max abs error within 1e-5;
 4. cost kernel, score mode vs plain: the normalised costs against the plain
    composition at the main path's shapes (185x613, N=5, K in {1,4,10}, D in
-   {0,1,2,3} -- D=3 with the stereo disparity slot --, active_n in {5,3}):
+   {0,1,2,3} -- D=3 with the stereo disparity slot --, active_n in {5,3}),
+   and at the demo's default abs_resize_factor 0.5 (K=10, N=5, D=2):
    identical +inf pattern, finite values within rtol = atol = 1e-5;
 5. cost kernel, accept mode vs plain: a random (K=10), a global (K=4) and a
    jump (K=4) proposal batch at N=5, D=2: the accepted depth equals the
@@ -58,16 +59,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    alignment, < 0.02 * extent), then 1 timed pass;
 12. falign: a falign_pairs batch of four keyframe pairs of the full-SLAM
    scene (bench.py:240-298: 613x185, 60 flows, out and back, textured) at
-   the SLAM layer's local-link settings, without and with images, on the
-   card and on the CPU: per lane, the iteration counts, the angle between
-   the relative rotations and the difference of the translations within
-   FALIGN_LIMITS of the batch's kind (geo, photo), the card's rotation no
-   more than FALIGN_TRUTH_ROT farther from the true relative rotation than
-   the CPU's; every solver
-   tensor on the card, scale ratios within 1e-4,
-   scores within FALIGN_SCORE_TOL, and the card's covariances
+   the SLAM layer's local-link settings, without and with images, and one
+   loop-closure batch of its four revisit pairs at the loop-closure
+   settings (kind="lc": stride 3, depth blur 5, image blur 9, depth medians
+   normalised to 10, identity init, geometry stage then photometric), on
+   the card and on the CPU: per lane, the iteration counts, the angle
+   between the relative rotations and the difference of the translations
+   within FALIGN_LIMITS of the batch's kind (geo, photo, lc; the lc lanes'
+   iterations not held), the card's rotation no farther from the true
+   relative rotation than the CPU's by more than the kind's limit; every
+   solver tensor on the card, scale ratios
+   and scores within the kind's limits, and the card's covariances
    within FALIGN_COV_RTOL of pair_covariances on the CPU at the card's
-   parameters;
+   parameters; and bilinear sampling at a NaN coordinate on the card gives
+   NaN;
 13. PGO: drifted circle graphs with loop edges at 60 and 600 poses through
    pgo() (dense), pgo(reduce_threshold_dofs=0) (chain reduction) and
    pgo_solve_jit (matrix-free CG), on the card and on the CPU: poses within
@@ -76,15 +81,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    and 16 pairs with its kernel launches and host syncs (torch.profiler),
    PGO dense and CG per solve at 60 and 600 poses;
 15. slam-full-mono: the full-SLAM scene through VOLDOR_SLAM(mode="mono",
-   device="cuda") configured as bench.py:_make_slam_e2e without loop
-   closure, vo_thread and mapping_thread as two threads; one checked pass
-   (threads joined, finite poses, >= 1 accepted falign-local edge, the
-   final global PGO, the kernels' launches, Sim3 ATE < 0.02 * extent), one
-   timed pass (frames/s, the share of the wall in falign and in PGO, how
-   much of the mapping work overlaps the VO windows), and the ATE of a
-   VO-only pass beside the mapped one.
+   device="cuda") configured exactly as bench.py:_make_slam_e2e, with
+   enable_loop_closure() (the built-in vocabulary), vo_thread and
+   mapping_thread as two threads; one checked pass (threads joined, finite
+   poses, >= 1 accepted falign-local edge, >= 1 loop-closure candidate,
+   lc_link event and falign-lc edge, a global PGO after the first LC link,
+   the kernels' launches, Sim3 ATE < 0.02 * extent), one timed pass
+   (frames/s, the share of the wall in falign and in PGO, how much of the
+   mapping work overlaps the VO windows, the host seconds of append_kf's
+   loop-closure work split into ORB, retrieval with its refits and the
+   geometry check, the LC decisions, cv2's version), and one timed pass
+   with loop closure off beside it;
+16. the demo CLI at the users' size: the full-SLAM scene rendered at
+   KITTI's 1226x370 (fx = fy = 700, principal point at the centre), its
+   60 flows as .flo files and 61 PNG images in a directory of the checkout,
+   run through `python -m voldor_tpu_torch.demo --mode mono` (default
+   --resize 0.5, so abs_resize_factor 0.5) with --enable_mapping
+   --enable_loop_closure --save_poses --save_map --metrics in a child
+   process; it must exit 0, write 61 poses that pass the Sim3-ATE gate,
+   and its map must load (checkpoint.load_map) into a new VOLDOR_SLAM
+   with the same poses;
+17. mono-scaled: phase 11's scene and disparities through
+   VOLDOR_SLAM(mode="mono-scaled", device="cuda") with basefocal = bf
+   (bench.py:run_stereo): one checked pass under the bench's gate for the
+   mode (metric ATE < 0.05 * extent), then one timed pass.
 
-The kernels' launch counts sum the main-path phases (7, 10, 11 and 15).
+The kernels' launch counts sum the main-path phases (7, 10, 11, 15, 16 and
+17; phase 16's child process prints its own counts).
 The second-to-last line of stdout is a JSON record of the kernels; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -293,11 +316,12 @@ def bench_inputs(np, torch, scene):
     )
 
 
-def planes_at(bi, active_n, D, stereo=False):
-    """(rig, track, tinb), prior samples of D priors, at active_n frames."""
+def planes_at(bi, active_n, D, stereo=False, p=None):
+    """(rig, track, tinb), prior samples of D priors, at active_n frames
+    (with the parameters p, the bench's by default)."""
     from voldor_tpu_torch.vo import em
 
-    p = bi["p"]
+    p = bi["p"] if p is None else p
     rig = em.update_rigidness(bi["d0"], bi["fl"], bi["Rs"], bi["ts"], active_n, p).contiguous()
     track, tinb = em.precompute_obs_tracks(bi["fl"], active_n, p)
     ps = None
@@ -355,7 +379,29 @@ def phase_score(np, torch, bi):
                     f"max_abs_err {err:.3e} out-of-tol {bad}")
                 if bad:
                     raise AssertionError(f"kernel disagrees with its plain version (K={k}, D={D}, active_n={active_n})")
-    return max_err
+    # the demo's default abs_resize_factor (--resize 0.5): the rigidness,
+    # tracks, prior samples and costs all at 0.5
+    p05 = p._replace(abs_resize_factor=0.5)
+    rig, track, tinb, ps = planes_at(bi, WINDOW, 2, p=p05)
+    args = (cands_all, track, tinb, rig, Rs, ts, WINDOW, p05)
+    got = cost_mod.cost_map_score(*args, prior_samples=ps)
+    ref = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(*args, prior_samples=ps))
+    rig1, track1, tinb1, ps1 = planes_at(bi, WINDOW, 2)
+    at1 = cost_mod.cost_map_score(cands_all, track1, tinb1, rig1, Rs, ts, WINDOW, p, prior_samples=ps1)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    same_inf = torch.equal(fin, torch.isfinite(got))
+    g, r = got[fin], ref[fin]
+    bad = int((torch.abs(g - r) > ATOL + RTOL * torch.abs(r)).sum())
+    err = float(torch.abs(g - r).max()) if g.numel() else 0.0
+    both = fin & torch.isfinite(at1)
+    moved = float(torch.abs(ref[both] - at1[both]).max())
+    log(f"[score] abs_resize_factor 0.5, K=10 D=2 active_n={WINDOW}: finite {int(fin.sum())}/"
+        f"{fin.numel()} max_abs_err {err:.3e} out-of-tol {bad}, +inf pattern identical {same_inf}; "
+        f"the costs move by up to {moved:.3e} from abs_resize_factor 1")
+    if bad or not same_inf or not moved > 0:
+        raise AssertionError("the cost kernel at abs_resize_factor 0.5 disagrees with its plain version")
+    return max(max_err, err)
 
 
 def accept_batches(torch, bi, depth):
@@ -691,13 +737,13 @@ def run_sequence(np, torch, scene, check=False):
 
 def make_slam(mode, flows, disps=None):
     """VOLDOR_SLAM on the card, configured as bench.py:411-425 (mono) and
-    bench.py:171-182 (stereo) configure it."""
+    bench.py:171-182 (stereo, mono-scaled) configure it."""
     from voldor_tpu_torch.slam.system import VOLDOR_SLAM
 
     slam = VOLDOR_SLAM(mode=mode, device="cuda")
     slam.use_image_info = False
     slam.voldor_user_config = ""
-    if mode == "stereo":
+    if mode in ("stereo", "mono-scaled"):
         slam.set_cam_params(FX, FY, W / 2, H / 2, basefocal=BF_STEREO)
         slam.disps = list(disps)
         slam.disp_loader_pt = len(disps)
@@ -815,11 +861,15 @@ def run_slam_pass(np, torch, mode, flows, disps=None, check=False):
 
 
 def phase_slam(np, torch, mode, flows, gt, disps=None, n_timed=3):
-    """slam-mono / slam-stereo: one checked pass with the launches counted,
-    then n_timed timed passes. Returns (launch counts, median frames/s, ATE)."""
+    """slam-mono / slam-stereo / mono-scaled: one checked pass with the
+    launches counted, then n_timed timed passes under the bench's gate
+    (Sim3 ATE < 0.02 x extent for mono; metric ATE < 0.02 x extent for
+    stereo, < 0.05 x extent for mono-scaled, bench.py:204). Returns (launch
+    counts, median frames/s, ATE)."""
     from voldor_tpu_torch.utils.evaluation import ate_rmse
 
-    with_scale = mode == "mono"  # stereo is metric: no scale alignment
+    with_scale = mode == "mono"  # stereo and mono-scaled are metric
+    gate = 0.05 if mode == "mono-scaled" else 0.02
     extent = float(np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=1).max())
     reset_counts()
     slam, dt0, st = run_slam_pass(np, torch, mode, flows, disps, check=True)
@@ -833,9 +883,9 @@ def phase_slam(np, torch, mode, flows, gt, disps=None, n_timed=3):
         f"device covis vs the same functions on the CPU max abs err {st['covis_max_err']:.3e} "
         f"(tol {COVIS_TOL:g})")
     log(f"[slam-{mode}] {'Sim3' if with_scale else 'metric'} ATE {ate:.6f} vs gate "
-        f"{0.02 * extent:.6f} (extent {extent:.4f})")
+        f"{gate * extent:.6f} (extent {extent:.4f})")
     check_counts(mode, counts, st["em_iters"])
-    if not ate < 0.02 * extent:
+    if not ate < gate * extent:
         raise AssertionError(f"{mode}: trajectory fails the ATE gate")
     n_frames = flows.shape[0] + 1
     dts = []
@@ -847,7 +897,7 @@ def phase_slam(np, torch, mode, flows, gt, disps=None, n_timed=3):
             f"({st['dispatch_s']:.4f} s inside voldor_dispatch); windows "
             f"{st['windows']}, flushes {st['flushes']}, keyframes {st['keyframes']}, "
             f"vo_steps {st['vo_steps']}, EM iterations {st['em_iters']}, ATE {ate_t:.6f}")
-        if not ate_t < 0.02 * extent:
+        if not ate_t < gate * extent:
             raise AssertionError(f"{mode}: timed pass fails the ATE gate")
         dts.append(dt)
     med = statistics.median(dts)
@@ -894,35 +944,47 @@ def phase_no_sync(np, torch, scene):
 SLAM_E2E_FLOWS = 60  # bench.py:357
 # falign, card vs the CPU run, per lane and per kind of batch: LM
 # iterations (coarse and fine, each), the angle between the two relative
-# rotations (rad) and the largest difference of their translations (the
-# true translation is 1.1 long). Set at about twice the largest of the
-# card's readings against the CPU over six seeded batches
-# (tools/falign_card_vs_cpu.py; geo 30 iterations, 5.9e-4 rad, 5.2e-3;
-# photo 37, 1.2e-3 rad, 7.6e-3). The iterations are a loose check: a lane
-# whose cost has flattened ends on a run of float-noise accepts and
-# rejects, and the CPU alone, its init moved by 1e-6, moves them by up to
-# 27. The true relative rotations are 5.5e-3 to 1.2e-2 rad, so the
+# rotations (rad), the largest difference of their translations, and how
+# much farther from the true relative rotation the card's solve may land
+# than the CPU's (truth, rad). Set at about twice the largest of the card's
+# readings against the CPU over six seeded batches of four lanes
+# (tools/falign_card_vs_cpu.py). geo / photo (the true translation is 1.1
+# long): 30 / 37 iterations, 5.9e-4 / 1.2e-3 rad, 5.2e-3 / 7.6e-3, truth
+# 1.7e-4. lc (translations in units of the depths normalised to median 10;
+# the revisit pairs' true translation is ~0): 3.7e-3 rad, 5.8e-2, truth
+# 1.8e-3, scale ratio 4.5e-3, scores 1.2e-2; the CPU against itself, its
+# init moved by 1e-6, as far (3.8e-3 rad, 4.0e-2, 3.6e-3, 1.1e-2, 53
+# iterations), so the LC lanes' iterations are not held.
+# The iterations are a loose check: a lane whose cost has flattened ends
+# on a run of float-noise accepts and rejects, and the CPU alone, its init
+# moved by 1e-6, moves them by up to 27 (geo, photo). The true relative
+# rotations of the geo / photo pairs are 5.5e-3 to 1.2e-2 rad, so their
 # rotation limits reject a wrong rotation.
+# The scale ratio (relative) and the visibility / consistency scores of
+# the geo and photo lanes are held at 1e-4 and 1e-3.
 FALIGN_LIMITS = {
-    "geo": dict(iters=40, rot=1.2e-3, trans=1e-2),
-    "photo": dict(iters=45, rot=2.5e-3, trans=1.5e-2),
+    "geo": dict(iters=40, rot=1.2e-3, trans=1e-2, truth=5e-4, scale=1e-4, score=1e-3),
+    "photo": dict(iters=45, rot=2.5e-3, trans=1.5e-2, truth=5e-4, scale=1e-4, score=1e-3),
+    # the loop-closure batch: its photometric stage, from each run's own
+    # geometric stage
+    "lc": dict(iters=None, rot=7.5e-3, trans=1.2e-1, truth=3.6e-3, scale=9e-3, score=2.5e-2),
 }
-# how much farther from the true relative rotation the card's solve may
-# land than the CPU's (rad; read at most 1.7e-4 over the same batches)
-FALIGN_TRUTH_ROT = 5e-4
-FALIGN_SCORE_TOL = 1e-3  # visibility / consistency
+# the scene's revisit pairs among the keyframes of its SLAM pass (0, 5, ...,
+# 25, 40, ..., 55): the return leg's frame 60 - k sees frame k's view
+LC_PAIRS = [(5, 55), (10, 50), (15, 45), (20, 40)]
 FALIGN_COV_RTOL = 1e-3  # covariances at the same parameters
 PGO_POSE_TOL = 1e-3  # positions and rotation entries, card vs the CPU run
 
 
-def build_slam_scene(np, torch, n_flows):
+def build_slam_scene(np, torch, n_flows, h=H, w=W, focal=FX):
     """The bench's full-SLAM scene (bench.py:240-298, out and back with a
-    revisit, textured gray images), rendered with the port's so3_exp."""
+    revisit, textured gray images), rendered with the port's so3_exp at
+    h x w with the focal length focal (the principal point at the centre)."""
     from synthetic import plane_depth, render_window
 
     from voldor_tpu_torch.ops.lie import so3_exp
 
-    K = np.array([[FX, 0, W / 2], [0, FY, H / 2], [0, 0, 1]], np.float32)
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]], np.float32)
 
     def n_(v):
         v = np.asarray(v, np.float64)
@@ -945,13 +1007,13 @@ def build_slam_scene(np, torch, n_flows):
     def r2R(rv):
         return so3_exp(torch.as_tensor(np.asarray(rv, np.float32))).numpy()
 
-    flows, _, Ts = render_window(K, poses, planes, H, W, r2R)
-    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    flows, _, Ts = render_window(K, poses, planes, h, w, r2R)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
     rays = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(np.asarray(K, np.float64)).T
     images_bgri, images_grayf, depths = [], [], []
     for k in range(n_flows + 1):
         R, t = Ts[k][:3, :3], Ts[k][:3, 3]
-        d = plane_depth(K, R, t, planes, H, W).astype(np.float64)
+        d = plane_depth(K, R, t, planes, h, w).astype(np.float64)
         Xw = (rays * d[..., None] - t) @ R
         t1 = np.sin(2.1 * Xw[..., 0]) * np.cos(1.7 * Xw[..., 1])
         t2 = np.sin(0.9 * Xw[..., 0] + 1.3 * Xw[..., 1] + 0.7 * Xw[..., 2])
@@ -1019,6 +1081,53 @@ def falign_batch(np, torch, sc, n_pairs, photo, seed=None):
     return pairs, kw
 
 
+def falign_lc_batch(np, torch, sc, seed=None):
+    """The stage-1 (geometry) falign_pairs arguments of a loop-closure batch
+    at the SLAM layer's settings (voldor_tpu/slam/system.py:928-1091 with
+    kind="lc"): LC_PAIRS, true depths with 1% seeded noise (seed 200 unless
+    given), each normalised to median 10 as mono LC links do, blurred at
+    width 5, seeded confidences, identity init, stride 3, vbf = 5 x
+    basefocal, crw 10, 7-dof. Returns (pairs, kwargs, the gray images
+    blurred at width 9 for stage 2). The blur is the SLAM layer's
+    (_gblur: cv2.GaussianBlur where cv2 imports)."""
+    from voldor_tpu_torch.slam.system import VOLDOR_SLAM
+
+    blur = VOLDOR_SLAM(mode="mono", device="cpu")._gblur
+    rng = np.random.default_rng(200 if seed is None else seed)
+    D = []
+    for pair in LC_PAIRS:
+        for f in pair:
+            d = (sc["depths"][f] * (1.0 + 0.01 * rng.standard_normal((H, W)))).astype(np.float32)
+            D.append(blur(d * (10 / np.median(d)), 5))
+    D = np.stack(D).reshape(len(LC_PAIRS), 2, H, W)
+    Wt = rng.uniform(0.5, 1.0, D.shape).astype(np.float32)
+    images = np.stack([[blur(sc["images_grayf"][f], 9) for f in p] for p in LC_PAIRS])
+    kw = dict(depths=D, fx=FX, fy=FY, cx=W / 2, cy=H / 2, weights=Wt, optimize_7dof=True,
+              stride=3, vbf=BASEFOCAL * 5, crw=10)
+    return list(LC_PAIRS), kw, images
+
+
+def falign_run(np, torch, sc, kind, device, seed=None, nudge=0.0):
+    """One falign batch of a kind (geo, photo: falign_batch; lc: the two
+    stages of falign_lc_batch, the photometric one from this run's own
+    geometric result, coarse stride 6 and 12 fine iterations) on a device,
+    the init moved by nudge. Returns (pairs, the last call's kwargs, its
+    results)."""
+    from voldor_tpu_torch.falign import api as falign_api
+
+    if kind != "lc":
+        pairs, kw = falign_batch(np, torch, sc, 4, kind == "photo", seed=seed)
+        kw = dict(kw, poses_init=kw["poses_init"] + nudge)
+        return pairs, kw, falign_api.falign_pairs(**kw, device=device)
+    pairs, kw, images = falign_lc_batch(np, torch, sc, seed=seed)
+    if nudge:
+        kw["poses_init"] = np.full((len(pairs), 2, 6), nudge, np.float32)
+    geo = falign_api.falign_pairs(**kw, device=device)
+    kw = dict(kw, images=images, poses_init=np.stack([r["poses_ret"] for r in geo]),
+              coarse_stride=6, fine_iters=12)
+    return pairs, kw, falign_api.falign_pairs(**kw, device=device)
+
+
 def _rel_poses(np, torch, poses_ret):
     from voldor_tpu_torch.ops.lie import pose6_to_T44
 
@@ -1034,13 +1143,18 @@ def _angle(np, Ra, Rb):
 def falign_lanes(np, torch, sc, pairs, card, cpu):
     """Per lane of two falign_pairs runs of one batch: iterations of each,
     the rotation angle and largest translation difference between their
-    relative poses, and each run's rotation angle to the true relative
-    pose (rad)."""
+    relative poses, the relative difference of their scale ratios, the
+    largest difference of their visibility and consistency scores, and
+    each run's rotation angle to the true relative pose (rad)."""
     out = []
     for (a, b), x, y in zip(pairs, card, cpu):
         truth = sc["Ts"][a] @ np.linalg.inv(sc["Ts"][b])
         Tx, Ty = _rel_poses(np, torch, x["poses_ret"]), _rel_poses(np, torch, y["poses_ret"])
+        ra = x["scaling_factor"][1] / x["scaling_factor"][0]
+        rb = y["scaling_factor"][1] / y["scaling_factor"][0]
         out.append(dict(
+            scale=float(abs(ra / rb - 1.0)),
+            score=max(float(np.nanmax(np.abs(x[k] - y[k]))) for k in ("visibility_mat", "consistency_mat")),
             pair=(a, b), iters=(x["iters_coarse"], x["iters"]), iters_cpu=(y["iters_coarse"], y["iters"]),
             iters_off=max(abs(x["iters_coarse"] - y["iters_coarse"]), abs(x["iters"] - y["iters"])),
             rot=_angle(np, Tx[:3, :3], Ty[:3, :3]), trans=float(np.abs(Tx[:3, 3] - Ty[:3, 3]).max()),
@@ -1051,16 +1165,32 @@ def falign_lanes(np, torch, sc, pairs, card, cpu):
 
 def phase_falign(np, torch, sc):
     """falign_pairs on the card against the same function on the CPU, four
-    pairs, without and with images: per lane, the iterations, the relative
-    rotation and translation within FALIGN_LIMITS of their kind, the
-    card's rotation no more than FALIGN_TRUTH_ROT farther from the true
-    one than the CPU's; the scale
-    ratio within 1e-4 relative, the scores within FALIGN_SCORE_TOL, every
+    pairs, without and with images, and the loop-closure batch: per lane,
+    the iterations, the relative rotation and translation within
+    FALIGN_LIMITS of their kind, the card's rotation no farther from the
+    true one than the CPU's by more than the kind's limit; the scale
+    ratio and the scores within the kind's limits, every
     solver tensor on the card, and the covariances the card computed
     against pair_covariances on the CPU at the card's parameters within
     FALIGN_COV_RTOL."""
     from voldor_tpu_torch.falign import api as falign_api
     from voldor_tpu_torch.falign import solver as fsolver
+    from voldor_tpu_torch.ops.image import bilinear_sample, bilinear_sample_packed_grad
+
+    # a NaN coordinate (a point on the camera plane) on the card: NaN samples
+    # from in-range indices (a NaN's own cast is out of range: the gather's
+    # device-side assert)
+    img = torch.rand(6, 7, 3, device="cuda")
+    x = torch.tensor([1.5, float("nan")], device="cuda")
+    y = torch.tensor([2.0, 1.0], device="cuda")
+    packed = bilinear_sample_packed_grad(img[None], x[None], y[None])[0][0]
+    plain = bilinear_sample(img[..., 0], x, y)
+    torch.cuda.synchronize()
+    log(f"[falign] sampling at a NaN coordinate on the card: packed {packed.tolist()}, plain "
+        f"{plain.tolist()}")
+    if not (bool(torch.isnan(packed[1]).all()) and bool(torch.isfinite(packed[0]).all())
+            and bool(torch.isnan(plain[1])) and bool(torch.isfinite(plain[0]))):
+        raise AssertionError("bilinear sampling at a NaN coordinate is not NaN on the card")
 
     real_body = fsolver.lm_body
     off_card = []
@@ -1073,26 +1203,22 @@ def phase_falign(np, torch, sc):
 
     worst = dict(scale=0.0, score=0.0, cov=0.0)
     failed = []
-    for photo in (False, True):
-        kind = "photo" if photo else "geo"
-        pairs, kw = falign_batch(np, torch, sc, 4, photo)
+    cov_failed = []
+    for kind in ("geo", "photo", "lc"):
         solved = []
         fsolver.lm_body = checked_body
         try:
             with spying(falign_api, "solve_lanes", solved):
-                card = falign_api.falign_pairs(**kw, device="cuda")
+                pairs, kw, card = falign_run(np, torch, sc, kind, "cuda")
         finally:
             fsolver.lm_body = real_body
-        cpu = falign_api.falign_pairs(**kw, device="cpu")
+        _, _, cpu = falign_run(np, torch, sc, kind, "cpu")
         if off_card:
             raise AssertionError(f"falign solver tensors off the card: {sorted(set(off_card))}")
         lanes = falign_lanes(np, torch, sc, pairs, card, cpu)
-        for a, b in zip(card, cpu):
-            ra = a["scaling_factor"][1] / a["scaling_factor"][0]
-            rb = b["scaling_factor"][1] / b["scaling_factor"][0]
-            worst["scale"] = max(worst["scale"], abs(ra / rb - 1.0))
-            for k in ("visibility_mat", "consistency_mat"):
-                worst["score"] = max(worst["score"], float(np.nanmax(np.abs(a[k] - b[k]))))
+        scale = max(ln["scale"] for ln in lanes)
+        score = max(ln["score"] for ln in lanes)
+        worst["scale"], worst["score"] = max(worst["scale"], scale), max(worst["score"], score)
         # the covariance function on the CPU at the card's parameters
         cov_card = np.stack([a["poses_covar"] for a in card])
         cov_ref = cpu_covariances(np, torch, kw, solved[-1][0].cpu().numpy())
@@ -1100,27 +1226,33 @@ def phase_falign(np, torch, sc):
         diag = np.arange(7)
         cov_err = float((np.abs(cov_card - cov_ref)[..., diag, diag] / denom[..., diag, diag]).max())
         worst["cov"] = max(worst["cov"], cov_err)
+        if cov_err > FALIGN_COV_RTOL:
+            cov_failed.append(kind)
         cov_indep = float((np.abs(cov_card - np.stack([b["poses_covar"] for b in cpu]))
                            [..., diag, diag] / denom[..., diag, diag]).max())
         lim = FALIGN_LIMITS[kind]
         for ln in lanes:
             log(f"[falign] {kind} lane {ln['pair']}: iterations (coarse, fine) card {ln['iters']} cpu "
-                f"{ln['iters_cpu']} (limit {lim['iters']}); rotation {ln['rot']:.3e} rad (limit "
-                f"{lim['rot']:.1e}), translation {ln['trans']:.3e} (limit {lim['trans']:.1e}); "
+                f"{ln['iters_cpu']} (limit {lim['iters'] or 'none'}); rotation {ln['rot']:.3e} rad "
+                f"(limit {lim['rot']:.1e}), translation {ln['trans']:.3e} (limit {lim['trans']:.1e}); "
                 f"rotation to the true pose card {ln['truth_rot']:.3e} cpu {ln['truth_rot_cpu']:.3e} "
-                f"(limit cpu + {FALIGN_TRUTH_ROT:.0e})")
-            if ln["iters_off"] > lim["iters"] or ln["rot"] > lim["rot"] or ln["trans"] > lim["trans"]:
+                f"(limit cpu + {lim['truth']:.1e})")
+            iters_out = lim["iters"] is not None and ln["iters_off"] > lim["iters"]
+            if iters_out or ln["rot"] > lim["rot"] or ln["trans"] > lim["trans"]:
                 failed.append((kind, ln["pair"], "card vs cpu"))
-            if ln["truth_rot"] > ln["truth_rot_cpu"] + FALIGN_TRUTH_ROT:
+            if ln["truth_rot"] > ln["truth_rot_cpu"] + lim["truth"]:
                 failed.append((kind, ln["pair"], "rotation to the true pose"))
-        log(f"[falign] {kind}: scale ratio {worst['scale']:.3e}, scores {worst['score']:.3e}; "
+            if ln["scale"] > lim["scale"] or ln["score"] > lim["score"]:
+                failed.append((kind, ln["pair"], "scale ratio or scores"))
+        log(f"[falign] {kind}: scale ratio {scale:.3e} (limit {lim['scale']:.1e}), scores "
+            f"{score:.3e} (limit {lim['score']:.1e}); "
             f"covariance diagonals vs the CPU at the card's parameters {cov_err:.3e} relative "
             f"(vs the CPU's own solve {cov_indep:.3e}); consistency "
             f"{[round(float(np.nanmean(a['consistency_mat'])), 4) for a in card]}")
     if failed:
         raise AssertionError(f"falign lanes on the card outside their limits: {failed}")
-    if worst["scale"] > 1e-4 or worst["score"] > FALIGN_SCORE_TOL or worst["cov"] > FALIGN_COV_RTOL:
-        raise AssertionError(f"falign on the card disagrees with the CPU run: {worst}")
+    if cov_failed:
+        raise AssertionError(f"falign covariances on the card disagree with the CPU's: {cov_failed}")
     return worst
 
 
@@ -1305,9 +1437,10 @@ def phase_mapping_times(np, torch, sc):
     return out
 
 
-def make_full_slam(sc):
+def make_full_slam(sc, loop_closure=True):
     """VOLDOR_SLAM(mode="mono") configured as bench.py:_make_slam_e2e
-    (:301-321), without enable_loop_closure (ORB retrieval needs cv2)."""
+    (:301-321): enable_loop_closure() with the built-in vocabulary unless
+    loop_closure is False."""
     from voldor_tpu_torch.slam.system import VOLDOR_SLAM
 
     slam = VOLDOR_SLAM(mode="mono", device="cuda")
@@ -1320,8 +1453,34 @@ def make_full_slam(sc):
     slam.images_bgri = list(sc["images_bgri"])
     slam.images_grayf = list(sc["images_grayf"])
     slam.image_loader_pt = len(sc["images_bgri"])
+    if loop_closure:
+        slam.enable_loop_closure()
     slam.lc_min_kf_distance = 3
     return slam
+
+
+class _TimedORB:
+    """A cv2 ORB detector whose detectAndCompute adds its seconds to a sum."""
+
+    def __init__(self, orb, sums):
+        self.orb, self.sums = orb, sums
+
+    def detectAndCompute(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return self.orb.detectAndCompute(*a, **k)
+        finally:
+            self.sums["orb"] += time.perf_counter() - t0
+
+
+def _time_into(sums, key, fn):
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            sums[key] += time.perf_counter() - t0
+    return wrapper
 
 
 def _overlap(intervals, others):
@@ -1333,17 +1492,38 @@ def _overlap(intervals, others):
     return tot
 
 
-def run_full_slam(np, torch, sc, check=False):
+def run_full_slam(np, torch, sc, check=False, loop_closure=True):
     """One pass of vo_thread + mapping_thread, joined with a timeout as
-    bench.py:_run_slam_once does. Returns (slam, wall s, stats)."""
+    bench.py:_run_slam_once does. With loop closure, the host seconds of
+    append_kf's loop-closure work: ORB, the retriever's query and add
+    (its k-majority refits inside the add) and the geometry check. Returns
+    (slam, wall s, stats)."""
     import threading
 
     from voldor_tpu_torch.falign import api as falign_api
     from voldor_tpu_torch.pgo import api as pgo_api
+    from voldor_tpu_torch.slam import system as slam_system
 
-    slam = make_full_slam(sc)
+    slam = make_full_slam(sc, loop_closure)
     events, spans, dispatched = [], {"falign": [], "pgo": [], "vo": []}, []
     slam.metrics.log = lambda event, **kw: events.append(dict(event=event, **kw))
+    lc_s = {"orb": 0.0, "retrieval": 0.0, "geometry": 0.0}
+    refits = []
+    if loop_closure:
+        slam.feature_detector = _TimedORB(slam.feature_detector, lc_s)
+        r = slam.retriever
+        r.query_frame = _time_into(lc_s, "retrieval", r.query_frame)
+        add = r.add_frame
+
+        def add_frame(*a, **k):
+            was = r._n_des_at_train
+            t0 = time.perf_counter()
+            out = add(*a, **k)
+            if r._n_des_at_train != was:
+                refits.append((r._n_des_at_train, time.perf_counter() - t0))
+            return out
+
+        r.add_frame = _time_into(lc_s, "retrieval", add_frame)
 
     def spanned(name, fn):
         def wrapper(*a, **k):
@@ -1354,9 +1534,11 @@ def run_full_slam(np, torch, sc, check=False):
                 spans[name].append((t0, time.perf_counter()))
         return wrapper
 
-    real = {"falign": falign_api.falign_pairs, "pgo": pgo_api.pgo}
+    real = {"falign": falign_api.falign_pairs, "pgo": pgo_api.pgo,
+            "geometry": slam_system.geometry_check}
     falign_api.falign_pairs = spanned("falign", real["falign"])
     pgo_api.pgo = spanned("pgo", real["pgo"])
+    slam_system.geometry_check = _time_into(lc_s, "geometry", real["geometry"])
     slam.process_vo = spanned("vo", slam.process_vo)
     dispatch = slam._vo_dispatch
 
@@ -1379,8 +1561,10 @@ def run_full_slam(np, torch, sc, check=False):
         dt = time.perf_counter() - t0
     finally:
         falign_api.falign_pairs, pgo_api.pgo = real["falign"], real["pgo"]
+        slam_system.geometry_check = real["geometry"]
     alive = vo.is_alive() or mp.is_alive()
     links = [e for e in events if e["event"] == "local_link"]
+    lc_links = [e for e in events if e["event"] == "lc_link"]
     pgos = [e for e in events if e["event"] == "pgo"]
     busy = {k: sum(b - a for a, b in v) for k, v in spans.items()}
     mapping = spans["falign"] + spans["pgo"]
@@ -1395,6 +1579,9 @@ def run_full_slam(np, torch, sc, check=False):
         edges={t: sum(1 for e in slam.edges if e.edge_type == t)
                for t in sorted({e.edge_type for e in slam.edges})},
         em_iters=sum(int(h.engine._st_scalars[1]) for h in dispatched),
+        lc_candidates=list(slam.lc_candidates),
+        lc_links=[(e["kf_ids"], e["consistency"], e["visibility"], e["accepted"]) for e in lc_links],
+        lc_s=lc_s, refits=refits,
     )
     if check:
         if alive:
@@ -1407,13 +1594,25 @@ def run_full_slam(np, torch, sc, check=False):
             raise AssertionError("slam-full-mono: no falign-local edge was accepted")
         if not pgos or pgos[-1]["fid_start"] != 0:
             raise AssertionError("slam-full-mono: the final global PGO did not run")
+        if loop_closure:
+            names = [e["event"] for e in events]
+            after = events[names.index("lc_link"):] if "lc_link" in names else []
+            if not slam.lc_candidates:
+                raise AssertionError("slam-full-mono: no loop-closure candidate")
+            if not lc_links or st["edges"].get("falign-lc", 0) < 1:
+                raise AssertionError("slam-full-mono: no loop-closure link or falign-lc edge")
+            if not any(e["event"] == "pgo" and e["fid_start"] == 0 for e in after):
+                raise AssertionError("slam-full-mono: no global PGO after the loop-closure link")
     return slam, dt, st
 
 
 def phase_full_slam(np, torch, sc):
-    """slam-full-mono: one checked pass with the kernels' launches counted,
-    one timed pass, and a VO-only pass (process_vo alone) for comparison.
-    Returns (launch counts, frames/s of the timed pass, ATE)."""
+    """slam-full-mono, loop closure on: one checked pass with the kernels'
+    launches counted, one timed pass, and one timed pass with loop closure
+    off for comparison. Returns (launch counts, frames/s of the timed pass,
+    ATE)."""
+    import cv2
+
     from voldor_tpu_torch.utils.evaluation import ate_rmse
 
     gt = np.linalg.inv(sc["Ts"])
@@ -1428,8 +1627,10 @@ def phase_full_slam(np, torch, sc):
     slam, dt0, st = run_full_slam(np, torch, sc, check=True)
     counts = read_counts()
     ate = ate_of(slam)
-    log(f"[slam-full-mono] checked pass: {n_frames} frames in {dt0:.4f} s ({n_frames / dt0:.4f} "
-        f"frames/s); keyframes {len(st['keyframes'])} {st['keyframes']}; local links tried "
+    log(f"[slam-full-mono] checked pass (loop closure on): {n_frames} frames in {dt0:.4f} s "
+        f"({n_frames / dt0:.4f} frames/s); keyframes {len(st['keyframes'])} {st['keyframes']}; "
+        f"loop-closure candidates {st['lc_candidates']}, LC links (kf_ids, consistency, "
+        f"visibility, accepted) {st['lc_links']}; local links tried "
         f"{st['links']}, accepted {st['accepted']}, rejected by consistency/visibility "
         f"{st['rejected_cv']}, by covariance rank {st['rejected_rank']}; edges {st['edges']}; PGO "
         f"solves (fid_start, n_frames, n_edges, solve_s) {st['pgo']}; falign calls "
@@ -1442,6 +1643,13 @@ def phase_full_slam(np, torch, sc):
 
     slam, dt, st = run_full_slam(np, torch, sc)
     ate_t = ate_of(slam)
+    lc = st["lc_s"]
+    log(f"[slam-full-mono] timed pass, loop-closure host work in append_kf (cv2 {cv2.__version__}): "
+        f"ORB {lc['orb']:.4f} s, retrieval {lc['retrieval']:.4f} s (k-majority refits at "
+        f"(descriptors, s of that add) {[(n, round(t, 4)) for n, t in st['refits']]}), geometry "
+        f"check {lc['geometry']:.4f} s; {sum(lc.values()):.4f} s in all, "
+        f"{100 * sum(lc.values()) / dt:.2f}% of the wall, {100 * sum(lc.values()) / st['vo_s']:.2f}% "
+        f"of the VO windows; candidates {st['lc_candidates']}, LC links {st['lc_links']}")
     log(f"[slam-full-mono] timed pass: {n_frames / dt:.4f} frames/s ({dt:.4f} s); falign "
         f"{st['falign_s']:.4f} s in {st['falign_calls']} calls ({100 * st['falign_s'] / dt:.1f}% "
         f"of the wall), PGO {st['pgo_s']:.4f} s in {len(st['pgo'])} solves "
@@ -1453,23 +1661,110 @@ def phase_full_slam(np, torch, sc):
     if st["alive"] or not ate_t < 0.02 * extent:
         raise AssertionError("slam-full-mono: the timed pass fails")
 
-    vo_only = make_full_slam(sc)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    while vo_only.process_vo():
-        pass
-    torch.cuda.synchronize()
-    dt_vo = time.perf_counter() - t0
-    log(f"[slam-full-mono] VO-only pass (process_vo alone, for comparison): "
-        f"{n_frames / dt_vo:.4f} frames/s, Sim3 ATE {ate_of(vo_only):.6f}; the mapped pass "
+    off, dt_off, st_off = run_full_slam(np, torch, sc, loop_closure=False)
+    log(f"[slam-full-mono] timed pass, loop closure off (for comparison): {n_frames / dt_off:.4f} "
+        f"frames/s ({dt_off:.4f} s); falign {st_off['falign_s']:.4f} s in "
+        f"{st_off['falign_calls']} calls, PGO {st_off['pgo_s']:.4f} s, edges {st_off['edges']}, "
+        f"Sim3 ATE {ate_of(off):.6f}; with loop closure {n_frames / dt:.4f} frames/s, ATE "
         f"{ate_t:.6f}")
+    if st_off["alive"]:
+        raise AssertionError("slam-full-mono: the pass with loop closure off did not end")
     return counts, n_frames / dt, ate
+
+
+CLI_H, CLI_W, CLI_F = 370, 1226, 700.0  # KITTI's input size, a focal length at it
+# phase 16's child: `python -m voldor_tpu_torch.demo ARGS` (runpy's
+# run_module is what -m runs), then the kernels' launch counts of that run
+CLI_CHILD = (
+    "import json, runpy\n"
+    "runpy.run_module('voldor_tpu_torch.demo', run_name='__main__', alter_sys=True)\n"
+    "from voldor_tpu_torch.ops import cost, fb_smooth\n"
+    "print('[cli-counts] ' + json.dumps(dict(cost=cost.cost_kernel_launches, "
+    "score=cost.cost_score_launches, fb=fb_smooth.fb_smooth_kernel_launches)))\n"
+)
+
+
+def phase_cli(np, torch):
+    """The demo CLI on the card at KITTI's input size (see phase 16 in the
+    module docstring). Returns (launch counts of the child, frames/s of
+    the child's whole run, ATE)."""
+    import shutil
+    import tempfile
+
+    import cv2
+
+    from voldor_tpu_torch.slam.checkpoint import load_map
+    from voldor_tpu_torch.slam.system import VOLDOR_SLAM
+    from voldor_tpu_torch.utils.evaluation import ate_rmse
+    from voldor_tpu_torch.utils.flow_io import save_flow
+
+    t0 = time.perf_counter()
+    sc = build_slam_scene(np, torch, SLAM_E2E_FLOWS, h=CLI_H, w=CLI_W, focal=CLI_F)
+    tmp = Path(tempfile.mkdtemp(prefix="_smoke_cli_", dir=ROOT))
+    try:
+        (tmp / "flow").mkdir()
+        (tmp / "image").mkdir()
+        for i, fl in enumerate(sc["flows"]):
+            save_flow(str(tmp / "flow" / f"{i:06d}.flo"), fl)
+        for i, im in enumerate(sc["images_bgri"]):
+            cv2.imwrite(str(tmp / "image" / f"{i:06d}.png"), im)
+        t_files = time.perf_counter() - t0
+        poses, mapf, metrics = tmp / "poses.txt", tmp / "map.npz", tmp / "metrics.jsonl"
+        args = ["--mode", "mono", "--flow_dir", str(tmp / "flow"), "--img_dir", str(tmp / "image"),
+                "--fx", str(CLI_F), "--fy", str(CLI_F), "--cx", str(CLI_W / 2), "--cy", str(CLI_H / 2),
+                "--enable_mapping", "--enable_loop_closure", "--save_poses", str(poses),
+                "--save_map", str(mapf), "--metrics", str(metrics)]
+        t1 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", CLI_CHILD, *args], capture_output=True,
+                             text=True, timeout=600, cwd=ROOT)
+        dt = time.perf_counter() - t1
+        if out.returncode != 0:
+            log(out.stdout[-3000:])
+            log(out.stderr[-3000:])
+            raise AssertionError(f"the demo CLI exited {out.returncode}")
+        counts = json.loads(out.stdout.split("[cli-counts] ")[1].splitlines()[0])
+        lines = poses.read_text().strip().split("\n")
+        est = np.tile(np.eye(4), (len(lines), 1, 1))
+        est[:, :3, :4] = np.array([ln.split() for ln in lines], np.float64).reshape(-1, 3, 4)
+        gt = np.linalg.inv(sc["Ts"])
+        extent = float(np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=1).max())
+        ate = ate_rmse(est, gt, with_scale=True) if len(lines) == len(gt) else float("inf")
+        slam = VOLDOR_SLAM(mode="mono", device="cuda")
+        load_map(slam, str(mapf))
+        loaded = np.stack([f.Tcw[:3, :4] for f in slam.frames]).astype(np.float32)
+        same = loaded.shape == est[:, :3, :4].shape and bool(
+            np.array_equal(loaded, est[:, :3, :4].astype(np.float32)))
+        ev = [json.loads(x) for x in metrics.read_text().splitlines()]
+        kinds = {k: sum(e["event"] == k for e in ev) for k in ("vo_window", "local_link", "lc_link", "pgo")}
+        lc = [(e["kf_ids"], e["accepted"]) for e in ev if e["event"] == "lc_link"]
+        cands = list(slam.lc_candidates)
+        n_frames = SLAM_E2E_FLOWS + 1
+        log(f"[cli] {CLI_W}x{CLI_H} -> {CLI_W // 2}x{CLI_H // 2}: {n_frames} flows "
+            f"and images written in {t_files:.4f} s; python -m voldor_tpu_torch.demo exit 0 in "
+            f"{dt:.4f} s ({n_frames / dt:.4f} frames/s over the whole child, start-up and "
+            f"loaders included); {len(lines)} poses, Sim3 ATE {ate:.6f} vs gate "
+            f"{0.02 * extent:.6f}; map keyframes {slam.kf_ids}, edges "
+            f"{ {t: sum(e.edge_type == t for e in slam.edges) for t in sorted({e.edge_type for e in slam.edges})} }; "
+            f"load_map poses equal to the pose file {same}; metrics events {kinds}, loop-closure "
+            f"candidates {cands}, LC links {lc}; "
+            f"cost kernel launches {counts['cost']} ({counts['score']} in score mode), fb_smooth "
+            f"{counts['fb']}")
+        if len(lines) != n_frames or not ate < 0.02 * extent:
+            raise AssertionError("the demo CLI's poses fail the gate")
+        if not same:
+            raise AssertionError("load_map does not give the poses the CLI saved")
+        if counts["cost"] < 1 or counts["fb"] < 1:
+            raise AssertionError(f"the CLI run did not launch both kernels: {counts}")
+        return counts, n_frames / dt, ate
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
     import numpy as np
     import torch
 
+    t_run = time.perf_counter()
     smi = phase_device(torch)
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1560,8 +1855,14 @@ def main():
         f"{fps_full:.4f} frames/s (Sim3 ATE {ate_full:.6f}) beside slam-mono {fps_mono:.4f}; "
         f"launches cost / fb_smooth on the full pass {full['cost']} / {full['fb']}; "
         f"times {json.dumps(mapping_times)}")
-    paths = (win_counts, mono, stereo, full)
+    cli, fps_cli, ate_cli = phase_cli(np, torch)
+    mscaled, fps_ms, ate_ms = phase_slam(np, torch, "mono-scaled", flows, gt, disps=disps, n_timed=1)
+    log(f"[slam] mono-scaled {fps_ms:.4f} frames/s (metric ATE {ate_ms:.6f}); the CLI "
+        f"{fps_cli:.4f} frames/s over its whole run (Sim3 ATE {ate_cli:.6f}); launches cost / "
+        f"fb_smooth: CLI {cli['cost']} / {cli['fb']}, mono-scaled {mscaled['cost']} / {mscaled['fb']}")
+    paths = (win_counts, mono, stereo, full, cli, mscaled)
 
+    log(f"[run] {time.perf_counter() - t_run:.1f} s from the device check to here")
     log(f"[device] {smi}")
     log(json.dumps({"kernels": [
         {

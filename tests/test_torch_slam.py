@@ -505,17 +505,38 @@ def test_port_slam_rejects_engine_resize_factor(sequence):
 
 
 @pytest.mark.parametrize("call", [
-    "mono-scaled", "enable_loop_closure", "flow_loader", "image_loader", "disp_loader",
+    "debug_dir", "kitti_estimate_ground", "resize_factor", "loop_closure_without_cv2",
+    "image_loader_without_cv2",
 ])
-def test_unported_entry_points_raise(call):
-    if call == "mono-scaled":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSLAM(mode=call, device="cpu")
-        return
+def test_unported_entry_points_raise(call, sequence, monkeypatch, tmp_path):
+    """What the port still refuses: the options of ROADMAP queue A item 7
+    raise NotImplementedError naming the ROADMAP; loop closure and the
+    image loader raise RuntimeError naming cv2 where it does not import
+    (the JAX package runs on without loop closure there)."""
     slam = TSLAM(mode="mono", device="cpu")
-    args = {"enable_loop_closure": ()}.get(call, ("x",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(slam, call)(*args)
+    if call.endswith("without_cv2"):
+        monkeypatch.setitem(sys.modules, "cv2", None)
+        if call == "image_loader_without_cv2":
+            slam.h, slam.w = H, W
+            fn, args = slam.image_loader, (str(tmp_path),)
+        else:
+            fn, args = slam.enable_loop_closure, ()
+        with pytest.raises(RuntimeError, match="cv2"):
+            fn(*args)
+        assert not slam._use_loop_closure
+        return
+    slam.set_cam_params(FX, FY, CX, CY)
+    slam.voldor_user_config = USER_CONFIG + {
+        "debug_dir": "", "kitti_estimate_ground": " --kitti_estimate_ground 1",
+        "resize_factor": " --resize_factor 0.5"}[call]
+    if call == "debug_dir":
+        slam.debug_dir = str(tmp_path)
+    slam.flows = [f for f in sequence[1]]
+    slam.N_FRAMES = len(slam.flows) + 1
+    slam.h, slam.w = H, W
+    slam.flow_loader_pt = len(slam.flows)
+    with pytest.raises(NotImplementedError, match="ROADMAP" if call != "resize_factor" else "resize"):
+        slam.process_vo()
 
 
 # --------------------------------------------------------------------------
@@ -694,16 +715,26 @@ class _KeyframeFeed:
     """end_of_vo as a property that delivers one keyframe every third read
     of it: the mapping loop reads it once per pass (and once more in its
     idle branch), so keyframe arrival is a function of the loop's own
-    progress, with no clock or thread involved."""
+    progress, with no clock or thread involved. lc: {n_keyframes: (rid,
+    qid)}, a loop-closure candidate appended two reads after that many
+    keyframes were delivered, as append_kf appends one after its
+    keyframe."""
 
-    def __init__(self, order):
+    def __init__(self, order, lc=None):
         self.order = list(order)
         self.reads = 0
+        self.lc = dict(lc or {})
+        self.lc_at = None
 
     def read(self, slam):
         self.reads += 1
         if self.order and self.reads % 3 == 0:
             slam.kf_ids.append(self.order.pop(0))
+            if len(slam.kf_ids) in self.lc:
+                self.lc_at = (self.reads + 2, self.lc.pop(len(slam.kf_ids)))
+        if self.lc_at is not None and self.reads == self.lc_at[0]:
+            slam.lc_candidates.append(self.lc_at[1])
+            self.lc_at = None
         return not self.order
 
 
@@ -748,12 +779,21 @@ def _stub_pgo(poses, edges_idx, edges_pose, edges_covar=None, poses_idx=None,
     return np.asarray(poses, np.float32).copy()
 
 
-def test_mapping_thread_schedules_as_jax(monkeypatch):
+# wall-clock fields of the metrics events: not parity properties
+WALL_CLOCK = ("t", "solve_s", "window_s")
+
+
+@pytest.mark.parametrize("lc", [False, True])
+def test_mapping_thread_schedules_as_jax(monkeypatch, lc):
     """The mapping thread's scheduler in both packages, with falign_pairs and
     pgo stubbed (module attributes; nothing in voldor_tpu is edited) and a
     deterministic keyframe arrival (_KeyframeFeed), the link age limit set
     high: the same sequence of (pair_list, kind) dispatches and of
-    solve_pgo(fid_start) calls, the same edges and metrics."""
+    solve_pgo(fid_start) calls, the same edges and the same metrics events
+    but for their wall-clock fields. With lc, loop-closure candidates land
+    mid-run on both sides: the same ("links", "lc", ...) dispatches, each
+    followed by a global solve_pgo(0), and falign-lc edges (the stub passes
+    them: mono LC links normalise both depth medians to 10)."""
     monkeypatch.setattr(jfalign_api, "falign_pairs", _stub_falign_pairs)
     monkeypatch.setattr(tfalign_api, "falign_pairs", _stub_falign_pairs)
     monkeypatch.setattr(jpgo_api, "pgo", _stub_pgo)
@@ -801,8 +841,12 @@ def test_mapping_thread_schedules_as_jax(monkeypatch):
         slam.establish_links_batch, slam.solve_pgo = links, pgo
         events = []
         slam.metrics.log = lambda event, events=events, **k: events.append(dict(event=event, **k))
-        slam.feed = _KeyframeFeed(range(0, n_frames - 1, kf_every))
+        slam.feed = _KeyframeFeed(range(0, n_frames - 1, kf_every),
+                                  lc={20: (2, 19), 27: (6, 26)} if lc else None)
         slam.mapping_thread()
+        for e in events:
+            for k in WALL_CLOCK:
+                e.pop(k, None)
         runs[name] = (slam, calls, events)
     (j, jc, je), (t, tc, te) = runs["jax"], runs["port"]
     assert jc == tc
@@ -811,6 +855,16 @@ def test_mapping_thread_schedules_as_jax(monkeypatch):
     assert any(c[0] == "pgo" and c[1] > 0 for c in tc)  # a windowed PGO
     assert any(c[0] == "links" and len(c[2]) >= 12 for c in tc)  # a filled batch
     assert je == te
+    lc_calls = [i for i, c in enumerate(tc) if c[:2] == ("links", "lc")]
+    if lc:
+        assert j.lc_candidates == t.lc_candidates == [(2, 19), (6, 26)]
+        assert len(lc_calls) >= 2 and (6, 57) in tc[lc_calls[0]][2]  # kf ordinals 2, 19
+        for i in lc_calls:  # a global PGO follows each LC dispatch before the end
+            assert ("pgo", 0) in tc[i + 1:-1]
+        assert any(e.edge_type == "falign-lc" for e in t.edges)
+        assert any(e["event"] == "lc_link" and e["accepted"] for e in te)
+    else:
+        assert not lc_calls
     assert [(e.fid1, e.fid2, e.edge_type) for e in j.edges] == \
         [(e.fid1, e.fid2, e.edge_type) for e in t.edges]
     assert any(e.edge_type == "falign-local" for e in t.edges)

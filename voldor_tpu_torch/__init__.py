@@ -4,15 +4,17 @@ Mirrors ``voldor_tpu``'s module paths and function names; the JAX package
 is the reference it is tested against. This package imports torch and
 numpy, never jax and nothing from ``voldor_tpu``.
 
-Ported so far: the SLAM layer (``VOLDOR_SLAM(mode="mono" | "stereo")``
-from ``slam/system.py``: ``process_vo`` / ``vo_thread`` and the mapping
-half, ``mapping_thread`` with its frame-alignment links and ``solve_pgo``)
-over the VO window entry points (``voldor``, ``voldor_dispatch``), frame
-alignment (``falign``, ``falign.api.falign_pairs``) and pose-graph
-optimisation (``pgo``). The VO depth rounds run the hand-written CUDA
-kernels in ``csrc/``. Still raising ``NotImplementedError``: loop closure,
-the demo's file loaders, ``mode="mono-scaled"`` and the options of ROADMAP
-queue A item 7.
+Ported so far: the SLAM layer (``VOLDOR_SLAM(mode="mono" | "stereo" |
+"mono-scaled")`` from ``slam/system.py``: ``process_vo`` / ``vo_thread``,
+the file loaders, loop closure (``enable_loop_closure``,
+``slam/loop_closure.py``) and the mapping half, ``mapping_thread`` with its
+frame-alignment links and ``solve_pgo``; map checkpoints and the headless
+viewer) and the demo CLI (``python -m voldor_tpu_torch.demo``), over the VO
+window entry points (``voldor``, ``voldor_dispatch``), frame alignment
+(``falign``, ``falign.api.falign_pairs``) and pose-graph optimisation
+(``pgo``). The VO depth rounds run the hand-written CUDA kernels in
+``csrc/``. Still raising ``NotImplementedError``: the options of ROADMAP
+queue A item 7 (``debug_dir`` among them).
 
 Without a ``device`` argument the port runs on the CUDA device and raises
 when there is none; CPU callers pass ``device="cpu"``.

@@ -13,6 +13,16 @@ import math
 import torch
 
 
+def _index(floor: torch.Tensor, dtype) -> torch.Tensor:
+    """A floored coordinate as an index. A NaN coordinate (a point on the
+    camera plane) samples NaN through the lerp weights, as in the JAX
+    package, whose gather clamps the index; the index itself must stay in
+    range, and a NaN's cast is not (the most negative integer on the CPU,
+    a device-side assert in the gather on the card), so NaN becomes 0
+    first."""
+    return torch.nan_to_num(floor, nan=0.0).to(dtype)
+
+
 def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Bilinearly sample ``img`` at continuous pixel coordinates.
 
@@ -26,8 +36,8 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torc
     y0f = torch.floor(y)
     fx = x - x0f
     fy = y - y0f
-    x0 = x0f.to(torch.int32)
-    y0 = y0f.to(torch.int32)
+    x0 = _index(x0f, torch.int32)
+    y0 = _index(y0f, torch.int32)
     x1 = torch.clamp_max(x0 + 1, w - 1)
     y1 = torch.clamp_max(y0 + 1, h - 1)
     if img.dim() == 3:
@@ -60,7 +70,7 @@ def _packed_taps(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, rows=None)
     y0 = torch.clamp_max(torch.floor(y), h - 2.0)
     fx = (x - x0)[..., None]
     fy = (y - y0)[..., None]
-    idx = y0.to(torch.int64) * w + x0.to(torch.int64)
+    idx = _index(y0, torch.int64) * w + _index(x0, torch.int64)
     if rows is None and img.dim() > 3:
         nb = img.dim() - 3
         rows = torch.arange(math.prod(img.shape[:nb]), device=img.device).reshape(img.shape[:nb])

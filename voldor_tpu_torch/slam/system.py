@@ -4,15 +4,18 @@
 Same attributes, thresholds and mode configs as the JAX package's
 ``VOLDOR_SLAM``, plus a ``device`` keyword: the frame/edge graph,
 covisibility-gated VO stepping from on-device scores, temporal and spatial
-keyframes, the pipelined window dispatch (one window in flight across
-``process_vo`` calls, invalidated by ``_map_version``), and the mapping
-half: frame-alignment links (``establish_*`` over ``falign_pairs``), the
-priority-matrix ``mapping_thread`` and ``solve_pgo`` over ``pgo``.
+keyframes, the mono-scaled Huber disparity-scale fit, the pipelined window
+dispatch (one window in flight across ``process_vo`` calls, invalidated by
+``_map_version``), the file loaders of the demo, loop closure (ORB features,
+BoW retrieval and a geometry check on each keyframe, on the host), and the
+mapping half: frame-alignment links (``establish_*`` over ``falign_pairs``),
+the priority-matrix ``mapping_thread`` and ``solve_pgo`` over ``pgo``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): loop closure (``enable_loop_closure``: ORB retrieval needs cv2), the
-file loaders of the demo, and the ``mono-scaled`` mode. The TPU compile
-warm-up thread of the JAX package's mapping thread has no counterpart.
+Loop closure, the image loader and the PNG disparity loader need cv2; they
+raise ``RuntimeError`` without it. Not ported: the per-window debug dumps
+(``debug_dir`` raises ``NotImplementedError``, ROADMAP queue A item 7), the
+JAX package's native C++ flow prefetcher (the flow loader reads .flo files
+with ``utils/flow_io.load_flow``) and its TPU compile warm-up thread.
 """
 
 from __future__ import annotations
@@ -28,8 +31,17 @@ from voldor_tpu_torch.falign import api as falign_api
 from voldor_tpu_torch.ops.image import gaussian_blur
 from voldor_tpu_torch.pgo import api as pgo_api
 from voldor_tpu_torch.slam.frame import Edge, Frame
+from voldor_tpu_torch.slam.huber import draw_scale_subsample, huber_coef
+from voldor_tpu_torch.slam.loop_closure import BowRetriever, load_vocabulary
 from voldor_tpu_torch.slam.rwlock import RWLock
-from voldor_tpu_torch.slam.slam_utils import R_to_rvec, T6_to_T44, T44_to_T6, polish_T44
+from voldor_tpu_torch.slam.slam_utils import (
+    R_to_rvec,
+    T6_to_T44,
+    T44_to_T6,
+    geometry_check,
+    polish_T44,
+)
+from voldor_tpu_torch.utils.flow_io import load_flow
 from voldor_tpu_torch.utils.metrics import MetricsLogger
 from voldor_tpu_torch.vo.api import voldor_dispatch
 from voldor_tpu_torch.vo.engine import DeviceMap, resolve_device
@@ -37,6 +49,15 @@ from voldor_tpu_torch.vo.engine import DeviceMap, resolve_device
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A, item {item})")
+
+
+def _cv2(what: str):
+    """cv2, or a RuntimeError naming what needs it."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(f"{what} needs cv2 (OpenCV), which does not import here") from e
+    return cv2
 
 
 class VOLDOR_SLAM:
@@ -51,6 +72,9 @@ class VOLDOR_SLAM:
         # mono-scaled (voldor_slam.py:93-95)
         self.depth_scaling_max_pixels = 10000
         self.depth_scaling_conf_thresh = 0.3
+        # the fit's pixel subsample (the JAX package draws from np.random's
+        # global state); any object with .permutation(n)
+        self.depth_scaling_rng = np.random.default_rng(0)
 
         # voldor related, set before set_cam_params (voldor_slam.py:97-99)
         self.voldor_pose_sample_min_disp = 1.0
@@ -115,6 +139,7 @@ class VOLDOR_SLAM:
         self._flow_dev_cache = {}
         self._flow_transfer_f16 = None  # resolved lazily from the config
         self._map_version = 0
+        self._use_loop_closure = False
         self._block_vo_signal = False
         self._map_lock = RWLock()
         self._viewer_signal_map_changed = False
@@ -127,8 +152,11 @@ class VOLDOR_SLAM:
             self.mp_realtime_link_thresh = 1
             self.pgo_refine_kf_interval = 20
         elif mode == "mono-scaled":
-            # the Huber disparity-scale fit (system.py:883) needs scikit-learn
-            _not_ported("mode 'mono-scaled'", "3")
+            self.voldor_config = (
+                "--silent --meanshift_kernel_var 0.2 --delta 1.5 --max_iters 5 "
+            )
+            self.mp_realtime_link_thresh = 1
+            self.pgo_refine_kf_interval = 20
         elif mode == "mono":
             self.voldor_config = (
                 "--silent --meanshift_kernel_var 0.2 --delta 1.5 --max_iters 5 "
@@ -186,8 +214,9 @@ class VOLDOR_SLAM:
         )
 
     # ------------------------------------------------------------------
-    # loader sync (voldor_slam.py:207-315). The loaders feed the lists and
-    # advance the *_loader_pt counters; callers may also fill them directly.
+    # loader sync + threads (voldor_slam.py:207-315). The loaders feed the
+    # lists and advance the *_loader_pt counters; callers may also fill the
+    # lists directly.
     def _loader_sync(self, pt_attr, fid_query, no_block, block_when_uninit):
         if (getattr(self, pt_attr) == -1 and not block_when_uninit) or (
             fid_query >= self.N_FRAMES - 1
@@ -209,13 +238,90 @@ class VOLDOR_SLAM:
         return self._loader_sync("disp_loader_pt", fid_query, no_block, block_when_uninit)
 
     def flow_loader(self, flow_path, resize=1.0, n_cache=100, range=(0, 0)):
-        _not_ported("the flow file loader", "6 (the demo CLI)")
+        """Feeds self.flows with bounded read-ahead (system.py:261-285): the
+        directory's .flo files in sorted order (``range`` slices them),
+        resized by ``resize`` with the flow vectors scaled alike. Sets
+        N_FRAMES, h and w from the first file."""
+        files = sorted(f for f in os.listdir(flow_path) if f.endswith(".flo"))
+        if range != (0, 0):
+            files = files[range[0]:range[1]]
+        if not files:
+            raise RuntimeError(f"no .flo files in {flow_path}")
+        paths = [os.path.join(flow_path, f) for f in files]
+        flow = load_flow(paths[0])
+        self.N_FRAMES = len(paths) + 1
+        self.h = int(flow.shape[0] * resize)
+        self.w = int(flow.shape[1] * resize)
+        self.flow_loader_pt = 0
+        print(f"{len(paths)} flows loaded")
+        for i, path in enumerate(paths):
+            while len(self.flows) - self.fid_cur > n_cache:
+                time.sleep(0.01)
+            if i:
+                flow = load_flow(path)
+            if flow.shape[0] != self.h or flow.shape[1] != self.w:
+                flow = self._resize_flow(flow, self.w, self.h)
+            self.flows.append(flow)
+            self.flow_loader_pt += 1
+
+    @staticmethod
+    def _resize_flow(flow, w, h):
+        """(system.py:287-295)"""
+        sx, sy = w / flow.shape[1], h / flow.shape[0]
+        flow = _cv2("resizing flows").resize(flow, (w, h))
+        flow[..., 0] *= sx
+        flow[..., 1] *= sy
+        return flow
 
     def image_loader(self, image_path, n_cache=100, range=(0, 0)):
-        _not_ported("the image file loader", "6 (the demo CLI)")
+        """Feeds images_bgri (uint8 BGR) and images_grayf (float32 gray in
+        [0, 1]) at the flows' size (system.py:297-316)."""
+        cv2 = _cv2("the image loader")
+        if self.h == 0 or self.w == 0:
+            raise RuntimeError("Need start optical flow loader first.")
+        self.image_loader_pt = 0
+        image_fn_list = sorted(os.listdir(image_path))
+        if range != (0, 0):
+            image_fn_list = image_fn_list[range[0]:range[1]]
+        print(f"{len(image_fn_list)} images loaded")
+        for fn in image_fn_list:
+            while len(self.images_grayf) - self.fid_cur > n_cache or self.flow_loader_pt <= 0:
+                time.sleep(0.01)
+            img = cv2.imread(os.path.join(image_path, fn), cv2.IMREAD_COLOR)
+            if img.shape[0] != self.h or img.shape[1] != self.w:
+                img = cv2.resize(img, (self.w, self.h))
+            self.images_bgri.append(img.copy())
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY).astype(np.float32) / 255.0
+            self.images_grayf.append(img)
+            self.image_loader_pt += 1
 
     def disp_loader(self, disp_path, n_cache=100, range=(0, 0)):
-        _not_ported("the disparity file loader", "6 (the demo CLI)")
+        """Feeds self.disps at the flows' size (system.py:318-358): .flo
+        files (KITTI stereo: the negated x-flow) or 16-bit .png (value /
+        256), resized with the disparity scaled by the width ratio."""
+        if self.h == 0 or self.w == 0:
+            raise RuntimeError("Need start optical flow loader first.")
+        self.disp_loader_pt = 0
+        disp_fn_list = sorted(os.listdir(disp_path))
+        if range != (0, 0):
+            disp_fn_list = disp_fn_list[range[0]:range[1]]
+        print(f"{len(disp_fn_list)} disparities loaded")
+        for fn in disp_fn_list:
+            while len(self.disps) - self.fid_cur > n_cache or self.flow_loader_pt <= 0:
+                time.sleep(0.01)
+            if fn.endswith(".flo"):
+                disp = np.ascontiguousarray(-load_flow(os.path.join(disp_path, fn))[..., 0])
+            elif fn.endswith(".png"):
+                cv2 = _cv2("the PNG disparity loader")
+                disp = cv2.imread(os.path.join(disp_path, fn), cv2.IMREAD_UNCHANGED)
+                disp = disp.astype(np.float32) / 256.0
+            else:
+                raise ValueError(f"Unsupported disparity format {fn}")
+            if disp.shape[0] != self.h or disp.shape[1] != self.w:
+                disp = _cv2("resizing disparities").resize(disp, (self.w, self.h)) * (
+                    self.w / disp.shape[1])
+            self.disps.append(disp)
+            self.disp_loader_pt += 1
 
     # ------------------------------------------------------------------
     def save_poses(self, file_path="./output_pose.txt", format="KITTI"):
@@ -248,8 +354,30 @@ class VOLDOR_SLAM:
 
     # ------------------------------------------------------------------
     def enable_loop_closure(self, voc_path=None, retriever=None):
-        # ORB retrieval and the geometry check need cv2 (system.py:395-432)
-        _not_ported("loop closure", "6 (loop closure)")
+        """Loop closure (system.py:395-432): every keyframe's ORB features
+        are queried against a retriever and, past the score, keyframe
+        distance and geometry gates, become lc_candidates for the mapping
+        thread. voc_path, when it names a DBoW2/3 vocabulary (text
+        ORBvoc.txt[.gz] or binary ORBvoc.bin), backs a BowRetriever with it
+        and lowers the score threshold to the pretrained one; otherwise the
+        built-in online-learned vocabulary. Raises RuntimeError without
+        cv2, where the JAX package prints a note and runs without loop
+        closure: a run that asked for it does not silently lose it."""
+        self.feature_detector = _cv2("loop closure (ORB features, geometry check)").ORB_create()
+        if voc_path and retriever is None:
+            try:
+                voc = load_vocabulary(voc_path)
+                retriever = BowRetriever(vocabulary=voc)
+                self.lc_bow_score_thresh = self.lc_bow_score_thresh_pretrained
+                print(f"Loaded vocabulary from {voc_path} "
+                      f"({voc.n_words} words, k={voc.k} L={voc.L}, "
+                      f"score thresh -> {self.lc_bow_score_thresh})")
+            except (OSError, ValueError) as e:
+                print(f"Note: could not load vocabulary '{voc_path}' ({e}) — "
+                      "using the built-in online-learned vocabulary.")
+        # not `retriever or ...`: an empty retriever is falsy (__len__)
+        self.retriever = retriever if retriever is not None else BowRetriever()
+        self._use_loop_closure = True
 
     def solve_pgo(self, fid_start=0):
         """(voldor_slam.py:361-414; system.py:435-525) The graph is
@@ -321,10 +449,15 @@ class VOLDOR_SLAM:
 
     # ------------------------------------------------------------------
     def _gblur(self, img, k):
-        """The SLAM layer's Gaussian blur (system.py:912): the port's own
-        separable blur, with cv2.GaussianBlur's kernel and borders, on the
-        host."""
-        return gaussian_blur(torch.from_numpy(np.ascontiguousarray(img, np.float32)), k).numpy()
+        """The SLAM layer's Gaussian blur, on the host (system.py:912-922):
+        cv2.GaussianBlur where cv2 imports, the port's own separable blur
+        (cv2's sigma formula and borders) otherwise. The two differ at
+        width 9, where OpenCV tables its own taps."""
+        try:
+            import cv2
+        except ImportError:
+            return gaussian_blur(torch.from_numpy(np.ascontiguousarray(img, np.float32)), k).numpy()
+        return cv2.GaussianBlur(img, (k, k), 0)
 
     def establish_local_links(self, kf_ids):
         """(voldor_slam.py:538-594)"""
@@ -583,8 +716,9 @@ class VOLDOR_SLAM:
             poses_init=inputs["poses_init"],
             covis_spec=inputs["covis_spec"],
             # dense host copies are deferred to keyframe windows
-            # (process_vo calls start_host_copies at the kf decision)
-            host_copies=False,
+            # (process_vo calls start_host_copies at the kf decision);
+            # mono-scaled fits on the host every window
+            host_copies=self.mode == "mono-scaled",
             device=self.device,
         )
 
@@ -636,6 +770,17 @@ class VOLDOR_SLAM:
                 self.fid_cur_spakf = -1
                 self.fid_cur += 1
             else:
+                if self.mode == "mono-scaled":
+                    if not self.disp_loader_sync(self.fid_cur):
+                        raise RuntimeError("Disparity loader not working or files are missing.")
+                    # the window's maps on the host: the Huber disparity fit
+                    # rescales them in place (this window's frame then keeps
+                    # host maps; the covis gates are scale-invariant since
+                    # the fit rescales depth and translations jointly)
+                    vo_ret["depth"] = handle.depth_host()
+                    vo_ret["depth_conf"] = handle.conf_host()
+                    self._mono_scaled_fit(vo_ret)
+
                 Tc1c2 = T6_to_T44(vo_ret["poses"])
 
                 # window stepping from the on-device covisibility scores
@@ -650,7 +795,11 @@ class VOLDOR_SLAM:
                 for i in range(vo_step):
                     if i == 0:
                         f0 = Frame(np.linalg.inv(self.Twc_cur))
-                        f0.set_window_maps(handle.depth_dev, handle.conf_dev)
+                        if "depth" in vo_ret:  # mono-scaled host maps
+                            f0.depth = vo_ret["depth"]
+                            f0.depth_conf = vo_ret["depth_conf"]
+                        else:
+                            f0.set_window_maps(handle.depth_dev, handle.conf_dev)
                         self.frames.append(f0)
                     else:
                         self.frames.append(Frame(np.linalg.inv(self.Twc_cur)))
@@ -736,11 +885,76 @@ class VOLDOR_SLAM:
                 )
         return True
 
+    def _mono_scaled_fit(self, vo_ret):
+        """Huber regression of observed vs predicted disparity
+        (voldor_slam.py:472-492; system.py:883-910), with scikit-learn's
+        HuberRegressor objective (slam/huber.py). Confident pixels with a
+        disparity measurement (> 1e-6, as the JAX package masks holes), at
+        most depth_scaling_max_pixels of them drawn by draw_scale_subsample;
+        the scale 1 / coef, clipped to [0.1, 10], multiplies the window's
+        depth and translations (and their covariances)."""
+        disp = self.disps[self.fid_cur]
+        mask = (vo_ret["depth_conf"] > self.depth_scaling_conf_thresh) & (disp > 1e-6)
+        src = self.basefocal / vo_ret["depth"][mask]
+        dst = disp[mask]
+        if src.size > self.depth_scaling_max_pixels:
+            idx = draw_scale_subsample(self.depth_scaling_rng, src.size,
+                                       self.depth_scaling_max_pixels)
+            src, dst = src[idx], dst[idx]
+        if src.size < 10:
+            return
+        scale = float(np.clip(1.0 / huber_coef(src, dst), 0.1, 10))
+        vo_ret["depth"] *= scale
+        vo_ret["poses"][:, 3:6] *= scale
+        vo_ret["poses_covar"][:, :, 3:6] *= scale
+        vo_ret["poses_covar"][:, 3:6, :] *= scale
+
     # ------------------------------------------------------------------
     def append_kf(self, fid):
-        """(voldor_slam.py:678-701), loop closure off."""
+        """(voldor_slam.py:678-701; system.py:1120-1152) With loop closure
+        on: the keyframe's ORB features, the retrieval query (cold-start
+        geometry bar until the vocabulary trains), the keyframe-distance
+        and geometry gates, lc_candidates, then the keyframe joins the
+        retriever. All on the host, in the VO thread.
+
+        Unlike the JAX package, the keyframe is published to kf_ids after
+        its loop-closure query, not before: the mapping thread then always
+        merges a keyframe's candidates when it registers that keyframe. In
+        the JAX package a candidate that lands after the registration finds
+        its pair already linked (the idle pass links every pair above
+        mp_no_link_thresh as a local link), so whether a revisit becomes a
+        loop-closure link depends on thread timing."""
         self.frames[fid].is_keyframe = True
+        if self._use_loop_closure:
+            self._loop_closure_query(fid, len(self.kf_ids))
         self.kf_ids.append(fid)
+
+    def _loop_closure_query(self, fid, kf_ord):
+        """append_kf's loop-closure work for keyframe fid, ordinal kf_ord."""
+        import cv2
+
+        if not self.image_loader_sync(fid):
+            raise RuntimeError("Image loader not working or files are missing.")
+        img = self.images_bgri[fid]
+        kps, des = self.feature_detector.detectAndCompute(img, None)
+        self.frames[fid].kps = kps
+        self.frames[fid].des = des
+        gray = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        # cold-start schedule: same retrieval bar, stricter geometry bar
+        # until the vocabulary trains (system.py:112-126)
+        geo_thresh = (self.lc_geo_inlier_thresh if getattr(self.retriever, "trained", True)
+                      else self.lc_geo_inlier_cold_thresh)
+        for rid, score in self.retriever.query_frame(gray, des):
+            if score > self.lc_bow_score_thresh:
+                if kf_ord + 1 - rid < self.lc_min_kf_distance:
+                    continue
+                other = self.frames[self.kf_ids[rid]]
+                if des is None or other.des is None:
+                    continue
+                inlier_rate = geometry_check(kps, des, other.kps, other.des)
+                if inlier_rate > geo_thresh:
+                    self.lc_candidates.append((rid, kf_ord))
+        self.retriever.add_frame(gray, des)
 
     def vo_thread(self):
         """(voldor_slam.py:708-727)"""
@@ -763,8 +977,9 @@ class VOLDOR_SLAM:
         mp_link_batch_min are pending, when they are mp_link_max_delay_s
         old, when a PGO is due, or at the end; a windowed PGO every
         pgo_refine_kf_interval keyframes that brought new links, a global
-        one at the end. Loop-closure candidates (none while loop closure is
-        off) are linked at once."""
+        one at the end. Loop-closure candidates (append_kf's, with loop
+        closure on) are linked at once, and the next PGO after an LC link is
+        global."""
         print("Mapping thread started")
         self._mapping_loop()
         print("Mapping thread end.")
