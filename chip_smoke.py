@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With --parent DIR (a checkout of the parent commit, e.g. unpacked from
+git archive), phase 6 also builds and times the parent's fb_smooth kernel.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -13,7 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    SASS instruction count of every kernel;
 3. fb_smooth vs plain: the kernel against fb_smooth_reference on the card
    at (M, 185, 613), M in {5, 3, 2, 1}, on the bench scene's rigidness
-   maps: max abs error within 1e-5;
+   maps, and on seeded uniform stacks whose lines are shorter than a chunk
+   or not a multiple of it (h or w of 1, 37, 61): max abs error within
+   1e-5; beside it, the error against fb_smooth_chunked_reference (the
+   kernel's own arithmetic in plain torch), printed;
 4. cost kernel, score mode vs plain: the normalised costs against the plain
    composition at the main path's shapes (185x613, N=5, K in {1,4,10}, D in
    {0,1,2,3} -- D=3 with the stereo disparity slot --, active_n in {5,3}),
@@ -32,8 +38,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain versions and their bounds: the larger of the bytes over 3.35 TB/s
    and the least operations of the function on this run's data (counted
    from its plain formula, see least_ops) over the peak FP32 and
-   special-function rates; and fb_smooth's serial floor, the latency of
-   one forward and one backward step (timed on one thread) times h + w;
+   special-function rates; fb_smooth's row and column passes alone, the
+   parent tree's kernel (with --parent), its serial floor (the latency of
+   one forward and one backward step, timed on one thread, times h + w)
+   and the chunked design's chain floor (compositions and steps per line
+   pass, each timed on one thread);
 7. the VO windows: three consecutive 5-flow mono VO windows of the bench
    scene (613x185, seed 7) through voldor_tpu_torch's VO entry point on the
    card, with 0, 1 and 2 depth priors and the SLAM layer's constant-velocity
@@ -114,9 +123,12 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
+import inspect
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -257,7 +269,8 @@ def short_name(mangled):
     m = re.search(r"cost_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return f"cost_kernel<KT={m.group(1)}, {'accept' if m.group(2) == '1' else 'score'}>"
-    m = re.search(r"(fb_rows_kernel|fb_cols_kernel|fb_chain_probe_kernel)", mangled)
+    m = re.search(r"(fb_rows_kernel|fb_cols_kernel|fb_chain_probe_kernel|fb_combine_probe_kernel)",
+                  mangled)
     return m.group(1) if m else mangled
 
 
@@ -333,24 +346,35 @@ def planes_at(bi, active_n, D, stereo=False, p=None):
     return rig, track, tinb, ps
 
 
+FB_ODD_SHAPES = [(2, 1, W), (2, H, 1), (3, 37, W), (3, H, 61), (2, 37, 61), (1, 1, 1)]
+
+
 def phase_fb(np, torch, bi):
-    """fb_smooth kernel against its plain version on the bench's rigidness."""
+    """fb_smooth kernel against its plain version on the bench's rigidness,
+    and at shapes whose lines are shorter than a chunk or not a multiple of
+    it; beside its chunked arithmetic in plain torch."""
     from voldor_tpu_torch.ops import fb_smooth as fb
 
     rig, _, _, _ = planes_at(bi, WINDOW, 0)
-    max_err = 0.0
-    for m in (5, 3, 2, 1):
-        x = rig[:m].contiguous()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    cases = [(f"M={m} {H}x{W}", rig[:m].contiguous()) for m in (5, 3, 2, 1)]
+    cases += [(f"{m}x{h}x{w}", torch.rand((m, h, w), generator=gen, device="cuda"))
+              for m, h, w in FB_ODD_SHAPES]
+    max_err = max_chunk = 0.0
+    for name, x in cases:
         got = fb.fb_smooth(x, FB_EMM, FB_NCP)
         ref = fb.fb_smooth_reference(x, FB_EMM, FB_NCP)
+        chunked = fb.fb_smooth_chunked_reference(x, FB_EMM, FB_NCP)
         torch.cuda.synchronize()
         err = float(torch.abs(got - ref).max())
-        max_err = max(max_err, err)
-        log(f"[fb_smooth] M={m} {H}x{W}: max_abs_err {err:.3e}, bitwise equal "
-            f"{bool(torch.equal(got, ref))}")
+        err_c = float(torch.abs(got - chunked).max())
+        max_err, max_chunk = max(max_err, err), max(max_chunk, err_c)
+        log(f"[fb_smooth] {name}: max_abs_err against fb_smooth_reference {err:.3e}; against "
+            f"fb_smooth_chunked_reference {err_c:.3e} (bitwise equal {bool(torch.equal(got, chunked))})")
         if not err <= ATOL:
-            raise AssertionError(f"fb_smooth kernel disagrees with its plain version (M={m})")
-    return max_err
+            raise AssertionError(f"fb_smooth kernel disagrees with its plain version ({name})")
+    return max_err, max_chunk
 
 
 def phase_score(np, torch, bi):
@@ -554,30 +578,59 @@ def checked(err, what):
 
 
 def chain_floor_ms(torch):
-    """fb_smooth's serial floor at h x w: one forward and one backward step
-    timed on one thread (5e5 of each), times h + w (each row walks w of
-    both, each column h). Returns (floor ms, ns per step pair)."""
+    """fb_smooth's chain floors at h x w, from two one-thread probes: the
+    serial steps (5e5 forward, then 5e5 backward) and the Moebius
+    compositions (5e5 forward and backward, interleaved as the kernel
+    composes them). The serial design walks h + w step pairs; the chunked
+    design, per row and per column pass, composes L maps, scans log2 C
+    steps and walks L step pairs, L = ceil(n / C) for the C chunks of the
+    pass (its shuffles and memory not counted). Returns (serial floor ms,
+    ns per step pair, ns per composition pair, chunked floor ms)."""
     from voldor_tpu_torch.ops import _build
     from voldor_tpu_torch.ops import fb_smooth as fb
 
     fn = _build.function("fb_chain_probe_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+                         + [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p])
     e = torch.tensor([0.7, 0.6], device="cuda")
     out = torch.empty(1, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    consts = fb._constants(FB_EMM, FB_NCP)
+    consts = fb._constants_array(FB_EMM, FB_NCP)
     n = 500_000
-    checked(fn(e.data_ptr(), out.data_ptr(), 1000, *consts, stream), "chain probe")
-    ms = event_ms(torch, lambda: checked(fn(e.data_ptr(), out.data_ptr(), n, *consts, stream),
-                                          "chain probe"), 3)
-    if not 0.0 < float(out) < 1.0:
-        raise AssertionError(f"chain probe left {float(out)}, not a probability")
-    return ms / n * (H + W), ms / n * 1e6
+    ns = []
+    for which in (0, 1):
+        checked(fn(e.data_ptr(), out.data_ptr(), 1000, consts, which, stream), "chain probe")
+        ms = event_ms(torch, lambda: checked(fn(e.data_ptr(), out.data_ptr(), n, consts, which,
+                                                 stream), "chain probe"), 3)
+        if not math.isfinite(float(out)):
+            raise AssertionError(f"chain probe {which} left {float(out)}")
+        ns.append(ms / n * 1e6)
+    step, comb = ns
+    lw, lh = -(-W // fb.ROW_CHUNKS), -(-H // fb.COL_CHUNKS)
+    scans = (fb.ROW_CHUNKS.bit_length() - 1) + (fb.COL_CHUNKS.bit_length() - 1)
+    chunked = ((lw + lh + scans) * comb + (lw + lh) * step) * 1e-6
+    return step * (H + W) * 1e-6, step, comb, chunked
 
 
-def phase_times(np, torch, bi, sass):
+PARENT_FB_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+
+
+def start_parent_build(parent):
+    """nvcc of the parent tree's fb_smooth kernel (the serial one, entry
+    point fb_smooth_launch(in, mid, out, m, h, w, e0, ncp, omn, stream)) into
+    a library of its own in that tree, started now, waited for later."""
+    from voldor_tpu_torch.ops import _build
+
+    src = Path(parent) / "voldor_tpu_torch" / "csrc" / "fb_smooth_kernel.cu"
+    so = Path(parent) / "_fb_parent.so"
+    return so, subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+                                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+
+
+def phase_times(np, torch, bi, sass, parent=None):
     """Device-only times of both kernels, their plain versions' times and
-    their bounds. Returns the kernels' records."""
+    their bounds; with parent (start_parent_build's), the parent tree's
+    fb_smooth kernel beside this tree's. Returns the kernels' records."""
     from voldor_tpu_torch.ops import _build
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import fb_smooth as fb
@@ -588,16 +641,55 @@ def phase_times(np, torch, bi, sass):
     planes = (track, tinb, rig, Rs, ts, WINDOW, p)
     px = H * W
 
-    # fb_smooth at M = 5 (the rigidness stack) and M = 2 (dp_confs)
+    # fb_smooth at M = 5 (the rigidness stack) and M = 2 (dp_confs): both
+    # passes, and each pass alone (rows: in -> mid, columns: mid -> out)
     fb_fn = _build.function("fb_smooth_launch", fb._ARGTYPES)
+    consts = fb._constants_array(FB_EMM, FB_NCP)
+    chunks = (fb.ROW_CHUNKS, fb.COL_CHUNKS)
     fb_rec = {}
     for m in (5, 2):
         x = rig[:m].contiguous()
         mid, out = torch.empty_like(x), torch.empty_like(x)
-        args = (x.data_ptr(), mid.data_ptr(), out.data_ptr(), m, H, W,
-                *fb._constants(FB_EMM, FB_NCP), stream)
-        fb_rec[m] = device_ms(torch, lambda: checked(fb_fn(*args), "fb_smooth"))
+        for pas in (0, 1, 2):
+            args = (x.data_ptr(), mid.data_ptr(), out.data_ptr(), m, H, W, consts, *chunks, pas,
+                    stream)
+            fb_rec[m, pas] = device_ms(torch, lambda: checked(fb_fn(*args), "fb_smooth"))
+    # each pass alone at every chunk count the kernel takes (the choice of
+    # ROW_CHUNKS and COL_CHUNKS)
     x5 = rig.contiguous()
+    mid, out = torch.empty_like(x5), torch.empty_like(x5)
+    by_chunks = {}
+    for pas, name in ((1, "rows"), (2, "cols")):
+        for c in (8, 16, 32):
+            args = (x5.data_ptr(), mid.data_ptr(), out.data_ptr(), WINDOW, H, W, consts, c, c, pas,
+                    stream)
+            by_chunks[f"{name}_{c}"] = device_ms(torch, lambda: checked(fb_fn(*args), "fb_smooth"))
+    log(f"[times] fb_smooth M=5, each pass alone by chunks per line, ms per call: "
+        f"{ {k: round(v, 5) for k, v in by_chunks.items()} } (in use: rows {chunks[0]}, "
+        f"columns {chunks[1]})")
+    parent_ms = parent_err = None
+    if parent is not None:
+        so, proc = parent
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the parent's fb_smooth kernel:\n{report}")
+        pfn = ctypes.CDLL(str(so)).fb_smooth_launch
+        pfn.argtypes, pfn.restype = PARENT_FB_ARGTYPES, ctypes.c_int
+        pmid, pout = torch.empty_like(x5), torch.empty_like(x5)
+        pargs = (x5.data_ptr(), pmid.data_ptr(), pout.data_ptr(), WINDOW, H, W,
+                 *fb._constants(FB_EMM, FB_NCP)[:3], stream)
+        nmid, nout = torch.empty_like(x5), torch.empty_like(x5)
+        nargs = (x5.data_ptr(), nmid.data_ptr(), nout.data_ptr(), WINDOW, H, W, consts, *chunks, 0,
+                 stream)
+        runs = {"parent": [], "new": []}
+        for name in ("parent", "new", "new", "parent"):
+            fn, args = (pfn, pargs) if name == "parent" else (fb_fn, nargs)
+            runs[name].append(device_ms(torch, lambda: checked(fn(*args), name)))
+        parent_ms = min(runs["parent"])
+        parent_err = float((pout - nout).abs().max())
+        log(f"[times] fb_smooth M=5: the parent's serial kernel {runs['parent']} ms, this tree's "
+            f"{runs['new']} ms per call (order parent, new, new, parent; {N_LAUNCH} launches "
+            f"each); the two kernels' results differ by at most {parent_err:.3e}")
     plain1 = event_ms(torch, lambda: fb.fb_smooth_reference(x5, FB_EMM, FB_NCP), 3)
     kern = device_ms(torch, lambda: fb.fb_smooth(x5, FB_EMM, FB_NCP))
     plain2 = event_ms(torch, lambda: fb.fb_smooth_reference(x5, FB_EMM, FB_NCP), 3)
@@ -605,14 +697,16 @@ def phase_times(np, torch, bi, sass):
     fb_fp32, fb_sfu = ops_ms({"el": 2 * WINDOW * px}, {"el": FB_PIECE})
     fb_by_bytes = fb_bytes / HBM_BYTES_PER_S * 1e3
     fb_bound = max(fb_by_bytes, fb_fp32, fb_sfu)
-    chain_ms, pair_ns = chain_floor_ms(torch)
-    log(f"[times] fb_smooth M=5 {H}x{W}: device {fb_rec[5]:.4f} ms per call ({N_LAUNCH} "
-        f"launches; M=2 {fb_rec[2]:.4f} ms; through the wrapper {kern:.4f} ms), plain "
-        f"{plain1:.4f} / {plain2:.4f} ms (order plain, kernel, plain); bound "
-        f"{fb_bound * 1e3:.3f} us (bytes {fb_by_bytes * 1e3:.3f} us for {fb_bytes} B, FP32 "
-        f"{fb_fp32 * 1e3:.3f} us, special-function {fb_sfu * 1e3:.3f} us); serial floor "
+    chain_ms, pair_ns, comb_ns, chunked_ms = chain_floor_ms(torch)
+    log(f"[times] fb_smooth M=5 {H}x{W}: device {fb_rec[5, 0]:.4f} ms per call ({N_LAUNCH} "
+        f"launches; rows alone {fb_rec[5, 1]:.4f} ms, columns alone {fb_rec[5, 2]:.4f} ms; M=2 "
+        f"{fb_rec[2, 0]:.4f} ms, rows {fb_rec[2, 1]:.4f}, columns {fb_rec[2, 2]:.4f}; through the "
+        f"wrapper {kern:.4f} ms), plain {plain1:.4f} / {plain2:.4f} ms (order plain, kernel, "
+        f"plain); bound {fb_bound * 1e3:.3f} us (bytes {fb_by_bytes * 1e3:.3f} us for {fb_bytes} "
+        f"B, FP32 {fb_fp32 * 1e3:.3f} us, special-function {fb_sfu * 1e3:.3f} us); serial floor "
         f"{chain_ms * 1e3:.3f} us ({H + W} forward + backward step pairs at {pair_ns:.3f} ns "
-        f"each, timed on one thread)")
+        f"each, timed on one thread); the chunked design's chain floor {chunked_ms * 1e3:.3f} us "
+        f"(compositions at {comb_ns:.3f} ns per forward + backward pair)")
 
     # the cost kernel in accept and score mode
     slope = (sass["cost_kernel<KT=10, accept>"] - sass["cost_kernel<KT=4, accept>"]) / 6
@@ -664,9 +758,13 @@ def phase_times(np, torch, bi, sass):
     pa2 = event_ms(torch, plain_accept, 10)
     log(f"[times] cost accept K=10: plain composition {pa1:.4f} / {pa2:.4f} ms, kernel through "
         f"the wrapper {wrap:.4f} ms per call ({N_LAUNCH} calls; order plain, kernel, plain)")
-    fb_record = dict(ms=fb_rec[5], plain_ms=min(plain1, plain2), bound_ms=fb_bound,
+    fb_record = dict(ms=fb_rec[5, 0], plain_ms=min(plain1, plain2), bound_ms=fb_bound,
                      bound_by="bytes" if fb_by_bytes >= max(fb_fp32, fb_sfu) else "operations",
-                     ms_m2=fb_rec[2], chain_floor_ms=chain_ms, chain_step_pair_ns=pair_ns)
+                     ms_m2=fb_rec[2, 0], rows_ms=fb_rec[5, 1], cols_ms=fb_rec[5, 2],
+                     chain_floor_ms=chain_ms, chain_step_pair_ns=pair_ns,
+                     chain_floor_new_ms=chunked_ms, combine_pair_ns=comb_ns,
+                     parent_ms=parent_ms, parent_max_diff=parent_err, by_chunks=by_chunks,
+                     chunks_rows=chunks[0], chunks_cols=chunks[1])
     c10 = cost_rec[10]
     cost_record = dict(ms=c10["accept"], plain_ms=min(pa1, pa2), bound_ms=c10["bound"]["accept"],
                        bound_by=c10["bound_by"], score_ms=c10["score"],
@@ -1325,6 +1423,7 @@ def phase_pgo(np, torch):
     worst = 0.0
     for n in (60, 600):
         g = circle_graph(np, torch, n, seed=n)
+        dense_cost = float("nan")
         for kw in ({}, {"reduce_threshold_dofs": 0}):
             out, solves = {}, {}
             for dev in ("cuda", "cpu"):
@@ -1333,6 +1432,8 @@ def phase_pgo(np, torch):
                         spying(pgo_api, "pgo_solve_jit", cg), \
                         spying(pgo_api, "chain_reduce", reduced):
                     out[dev] = pgo_api.pgo(*g, device=dev, **kw)
+                if dev == "cuda" and not kw and dense:
+                    dense_cost = float(dense[0][1])
                 solves[dev] = (("reduced to %d poses, " % len(reduced[0][0])) if reduced else "") + \
                     ", ".join(f"{name} {int(r[2])} LM iterations, cost {float(r[1]):.4e}"
                               for name, rs in (("dense", dense), ("cg", cg)) for r in rs)
@@ -1353,6 +1454,10 @@ def phase_pgo(np, torch):
         worst = max(worst, err)
         log(f"[pgo] pgo_solve_jit (CG) n={n}: cost / iterations card {res['cuda'][1:]} cpu "
             f"{res['cpu'][1:]}; poses max err {err:.3e}")
+        cap = inspect.signature(pgo_solver.pgo_solve_jit).parameters["max_iters"].default
+        log(f"[pgo] CG path n={n} converged: card {res['cuda'][2] < cap}, cpu {res['cpu'][2] < cap} "
+            f"(LM iterations {res['cuda'][2]} / {res['cpu'][2]} against the cap of {cap}; final "
+            f"cost {res['cuda'][1]:.4e} on the card against the dense solver's {dense_cost:.4e})")
     if worst > PGO_POSE_TOL:
         raise AssertionError(f"PGO on the card disagrees with the CPU run ({worst:.3e})")
     return worst
@@ -1437,13 +1542,13 @@ def phase_mapping_times(np, torch, sc):
     return out
 
 
-def make_full_slam(sc, loop_closure=True):
+def make_full_slam(sc, loop_closure=True, device="cuda"):
     """VOLDOR_SLAM(mode="mono") configured as bench.py:_make_slam_e2e
     (:301-321): enable_loop_closure() with the built-in vocabulary unless
     loop_closure is False."""
     from voldor_tpu_torch.slam.system import VOLDOR_SLAM
 
-    slam = VOLDOR_SLAM(mode="mono", device="cuda")
+    slam = VOLDOR_SLAM(mode="mono", device=device)
     slam.set_cam_params(FX, FY, W / 2, H / 2)
     flows = sc["flows"]
     slam.flows = [flows[i] for i in range(flows.shape[0])]
@@ -1627,6 +1732,7 @@ def phase_full_slam(np, torch, sc):
     slam, dt0, st = run_full_slam(np, torch, sc, check=True)
     counts = read_counts()
     ate = ate_of(slam)
+    st_checked = st
     log(f"[slam-full-mono] checked pass (loop closure on): {n_frames} frames in {dt0:.4f} s "
         f"({n_frames / dt0:.4f} frames/s); keyframes {len(st['keyframes'])} {st['keyframes']}; "
         f"loop-closure candidates {st['lc_candidates']}, LC links (kf_ids, consistency, "
@@ -1669,6 +1775,14 @@ def phase_full_slam(np, torch, sc):
         f"{ate_t:.6f}")
     if st_off["alive"]:
         raise AssertionError("slam-full-mono: the pass with loop closure off did not end")
+
+    def link(st_, pair):
+        return [round(c, 4) for k, c, _, _ in st_["lc_links"] if tuple(k) == pair]
+
+    log(f"[C1] the (25, 40) loop-closure link's consistency: checked pass "
+        f"{link(st_checked, (25, 40))}, timed pass {link(st, (25, 40))} (gate "
+        f"{slam.lc_link_consistency_thresh}); Sim3 ATE with loop closure on: checked {ate:.6f}, "
+        f"timed {ate_t:.6f}; off: {ate_of(off):.6f}")
     return counts, n_frames / dt, ate
 
 
@@ -1764,6 +1878,11 @@ def main():
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit (e.g. unpacked from git archive): its "
+                         "fb_smooth kernel is built and timed beside this tree's")
+    opt = ap.parse_args()
     t_run = time.perf_counter()
     smi = phase_device(torch)
     sys.path.insert(0, str(ROOT))
@@ -1772,6 +1891,7 @@ def main():
     from voldor_tpu_torch.utils.evaluation import ate_rmse
     from voldor_tpu_torch.vo import engine as engine_mod
 
+    parent = start_parent_build(opt.parent) if opt.parent else None
     phase_build()
     sass = sass_counts()
 
@@ -1779,10 +1899,10 @@ def main():
     # (the pose draws are sequential, so they are the same)
     scene = build_scene(np, torch, SLAM_FLOWS)
     bi = bench_inputs(np, torch, scene)
-    fb_err = phase_fb(np, torch, bi)
+    fb_err, fb_chunk_err = phase_fb(np, torch, bi)
     score_err = phase_score(np, torch, bi)
     accept_frac = phase_accept(np, torch, bi)
-    fb_rec, cost_rec = phase_times(np, torch, bi, sass)
+    fb_rec, cost_rec = phase_times(np, torch, bi, sass, parent)
 
     # the slice, counted: every launch from here on is the main path's
     reset_counts()
@@ -1879,8 +1999,17 @@ def main():
             "bound_by": fb_rec["bound_by"],
             "library_ms": None,
             "chain_floor_us": fb_rec["chain_floor_ms"] * 1e3,
+            "chain_floor_new_us": fb_rec["chain_floor_new_ms"] * 1e3,
             "chain_step_pair_ns": fb_rec["chain_step_pair_ns"],
+            "combine_pair_ns": fb_rec["combine_pair_ns"],
+            "parent_ms": fb_rec["parent_ms"],
+            "parent_max_diff": fb_rec["parent_max_diff"],
+            "max_abs_err_chunked": fb_chunk_err,
             "ms_m2": fb_rec["ms_m2"],
+            "rows_ms": fb_rec["rows_ms"],
+            "cols_ms": fb_rec["cols_ms"],
+            "chunks": [fb_rec["chunks_rows"], fb_rec["chunks_cols"]],
+            "ms_by_chunks": fb_rec["by_chunks"],
         },
         {
             "name": "cost_map_tracked",

@@ -35,10 +35,13 @@ from voldor_tpu_torch.vo.pose_step import _cameras_window_core, _cameras_window_
 
 def fb_smooth_masked(rigidness, active_n: int, fb_emm, fb_ncp):
     """FB-smooth only the active frames (maps are smoothed independently,
-    so inactive ones are simply left as they are)."""
-    out = rigidness.clone()
-    if active_n > 0:
-        out[:active_n] = fb_smooth(rigidness[:active_n], fb_emm, fb_ncp)
+    so inactive ones are simply left as they are): the smoothed maps are
+    written straight into the first planes of the result."""
+    if active_n <= 0:
+        return rigidness.clone()
+    out = torch.empty_like(rigidness)
+    out[active_n:] = rigidness[active_n:]
+    fb_smooth(rigidness[:active_n], fb_emm, fb_ncp, out=out[:active_n])
     return out
 
 
