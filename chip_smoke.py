@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-With --parent DIR (a checkout of the parent commit, e.g. unpacked from
-git archive), phase 6 also builds and times the parent's fb_smooth kernel.
+With --parent DIR (a checkout of another commit, e.g. the parent unpacked
+from git archive), phase 6 also times that checkout's fb_smooth kernel
+beside this one's, through tools/fb_smooth_ab.py (each checkout's own
+wrapper, in processes of their own).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -38,11 +40,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain versions and their bounds: the larger of the bytes over 3.35 TB/s
    and the least operations of the function on this run's data (counted
    from its plain formula, see least_ops) over the peak FP32 and
-   special-function rates; fb_smooth's row and column passes alone, the
-   parent tree's kernel (with --parent), its serial floor (the latency of
-   one forward and one backward step, timed on one thread, times h + w)
-   and the chunked design's chain floor (compositions and steps per line
-   pass, each timed on one thread);
+   special-function rates; fb_smooth's serial floor (the latency of one
+   forward and one backward step, timed on one thread, times h + w), the
+   chunked design's chain floor (compositions and steps per line pass,
+   each timed on one thread) and, with --parent, the other checkout's
+   kernel;
 7. the VO windows: three consecutive 5-flow mono VO windows of the bench
    scene (613x185, seed 7) through voldor_tpu_torch's VO entry point on the
    card, with 0, 1 and 2 depth priors and the SLAM layer's constant-velocity
@@ -583,8 +585,8 @@ def chain_floor_ms(torch):
     compositions (5e5 forward and backward, interleaved as the kernel
     composes them). The serial design walks h + w step pairs; the chunked
     design, per row and per column pass, composes L maps, scans log2 C
-    steps and walks L step pairs, L = ceil(n / C) for the C chunks of the
-    pass (its shuffles and memory not counted). Returns (serial floor ms,
+    steps and walks L step pairs, L = ceil(n / C) for the C = fb.CHUNKS
+    chunks of a line (its shuffles and memory not counted). Returns (serial floor ms,
     ns per step pair, ns per composition pair, chunked floor ms)."""
     from voldor_tpu_torch.ops import _build
     from voldor_tpu_torch.ops import fb_smooth as fb
@@ -605,32 +607,30 @@ def chain_floor_ms(torch):
             raise AssertionError(f"chain probe {which} left {float(out)}")
         ns.append(ms / n * 1e6)
     step, comb = ns
-    lw, lh = -(-W // fb.ROW_CHUNKS), -(-H // fb.COL_CHUNKS)
-    scans = (fb.ROW_CHUNKS.bit_length() - 1) + (fb.COL_CHUNKS.bit_length() - 1)
+    lw, lh = -(-W // fb.CHUNKS), -(-H // fb.CHUNKS)
+    scans = 2 * (fb.CHUNKS.bit_length() - 1)
     chunked = ((lw + lh + scans) * comb + (lw + lh) * step) * 1e-6
     return step * (H + W) * 1e-6, step, comb, chunked
 
 
-PARENT_FB_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-
-
-def start_parent_build(parent):
-    """nvcc of the parent tree's fb_smooth kernel (the serial one, entry
-    point fb_smooth_launch(in, mid, out, m, h, w, e0, ncp, omn, stream)) into
-    a library of its own in that tree, started now, waited for later."""
-    from voldor_tpu_torch.ops import _build
-
-    src = Path(parent) / "voldor_tpu_torch" / "csrc" / "fb_smooth_kernel.cu"
-    so = Path(parent) / "_fb_parent.so"
-    return so, subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-                                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
+def parent_times(parent):
+    """tools/fb_smooth_ab.py on the checkout `parent` and this one: each
+    one's fb_smooth kernel through its own wrapper, device-only (CUDA-graph
+    replays), alternating parent, this, this, parent. Returns the tool's
+    record: {"a": parent's, "b": this tree's}."""
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / "fb_smooth_ab.py"), str(parent),
+                        str(ROOT)], capture_output=True, text=True, timeout=900)
+    for ln in r.stdout.splitlines()[:-1]:
+        log(f"[times] fb_smooth_ab {ln}")
+    if r.returncode != 0:
+        raise RuntimeError(f"tools/fb_smooth_ab.py failed:\n{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    return json.loads(r.stdout.splitlines()[-1])
 
 
 def phase_times(np, torch, bi, sass, parent=None):
     """Device-only times of both kernels, their plain versions' times and
-    their bounds; with parent (start_parent_build's), the parent tree's
-    fb_smooth kernel beside this tree's. Returns the kernels' records."""
+    their bounds; with parent (a checkout), that checkout's fb_smooth
+    kernel beside this tree's. Returns the kernels' records."""
     from voldor_tpu_torch.ops import _build
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import fb_smooth as fb
@@ -641,55 +641,24 @@ def phase_times(np, torch, bi, sass, parent=None):
     planes = (track, tinb, rig, Rs, ts, WINDOW, p)
     px = H * W
 
-    # fb_smooth at M = 5 (the rigidness stack) and M = 2 (dp_confs): both
-    # passes, and each pass alone (rows: in -> mid, columns: mid -> out)
+    # fb_smooth at M = 5 (the rigidness stack) and M = 2 (dp_confs)
     fb_fn = _build.function("fb_smooth_launch", fb._ARGTYPES)
     consts = fb._constants_array(FB_EMM, FB_NCP)
-    chunks = (fb.ROW_CHUNKS, fb.COL_CHUNKS)
     fb_rec = {}
     for m in (5, 2):
         x = rig[:m].contiguous()
         mid, out = torch.empty_like(x), torch.empty_like(x)
-        for pas in (0, 1, 2):
-            args = (x.data_ptr(), mid.data_ptr(), out.data_ptr(), m, H, W, consts, *chunks, pas,
-                    stream)
-            fb_rec[m, pas] = device_ms(torch, lambda: checked(fb_fn(*args), "fb_smooth"))
-    # each pass alone at every chunk count the kernel takes (the choice of
-    # ROW_CHUNKS and COL_CHUNKS)
+        args = (x.data_ptr(), mid.data_ptr(), out.data_ptr(), m, H, W, consts, stream)
+        fb_rec[m] = device_ms(torch, lambda: checked(fb_fn(*args), "fb_smooth"))
     x5 = rig.contiguous()
-    mid, out = torch.empty_like(x5), torch.empty_like(x5)
-    by_chunks = {}
-    for pas, name in ((1, "rows"), (2, "cols")):
-        for c in (8, 16, 32):
-            args = (x5.data_ptr(), mid.data_ptr(), out.data_ptr(), WINDOW, H, W, consts, c, c, pas,
-                    stream)
-            by_chunks[f"{name}_{c}"] = device_ms(torch, lambda: checked(fb_fn(*args), "fb_smooth"))
-    log(f"[times] fb_smooth M=5, each pass alone by chunks per line, ms per call: "
-        f"{ {k: round(v, 5) for k, v in by_chunks.items()} } (in use: rows {chunks[0]}, "
-        f"columns {chunks[1]})")
-    parent_ms = parent_err = None
+    ab = None
     if parent is not None:
-        so, proc = parent
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the parent's fb_smooth kernel:\n{report}")
-        pfn = ctypes.CDLL(str(so)).fb_smooth_launch
-        pfn.argtypes, pfn.restype = PARENT_FB_ARGTYPES, ctypes.c_int
-        pmid, pout = torch.empty_like(x5), torch.empty_like(x5)
-        pargs = (x5.data_ptr(), pmid.data_ptr(), pout.data_ptr(), WINDOW, H, W,
-                 *fb._constants(FB_EMM, FB_NCP)[:3], stream)
-        nmid, nout = torch.empty_like(x5), torch.empty_like(x5)
-        nargs = (x5.data_ptr(), nmid.data_ptr(), nout.data_ptr(), WINDOW, H, W, consts, *chunks, 0,
-                 stream)
-        runs = {"parent": [], "new": []}
-        for name in ("parent", "new", "new", "parent"):
-            fn, args = (pfn, pargs) if name == "parent" else (fb_fn, nargs)
-            runs[name].append(device_ms(torch, lambda: checked(fn(*args), name)))
-        parent_ms = min(runs["parent"])
-        parent_err = float((pout - nout).abs().max())
-        log(f"[times] fb_smooth M=5: the parent's serial kernel {runs['parent']} ms, this tree's "
-            f"{runs['new']} ms per call (order parent, new, new, parent; {N_LAUNCH} launches "
-            f"each); the two kernels' results differ by at most {parent_err:.3e}")
+        ab = parent_times(parent)
+        log(f"[times] fb_smooth M=5, device-only per call (CUDA-graph replays, order parent, "
+            f"this, this, parent): the parent's kernel {ab['a']['ms']:.5f} ms, this tree's "
+            f"{ab['b']['ms']:.5f} ms; back to back through each wrapper {ab['a']['eager_ms']:.5f} "
+            f"/ {ab['b']['eager_ms']:.5f} ms; each against its own plain version within "
+            f"{ab['a']['max_abs_err']:.3e} / {ab['b']['max_abs_err']:.3e}")
     plain1 = event_ms(torch, lambda: fb.fb_smooth_reference(x5, FB_EMM, FB_NCP), 3)
     kern = device_ms(torch, lambda: fb.fb_smooth(x5, FB_EMM, FB_NCP))
     plain2 = event_ms(torch, lambda: fb.fb_smooth_reference(x5, FB_EMM, FB_NCP), 3)
@@ -698,11 +667,9 @@ def phase_times(np, torch, bi, sass, parent=None):
     fb_by_bytes = fb_bytes / HBM_BYTES_PER_S * 1e3
     fb_bound = max(fb_by_bytes, fb_fp32, fb_sfu)
     chain_ms, pair_ns, comb_ns, chunked_ms = chain_floor_ms(torch)
-    log(f"[times] fb_smooth M=5 {H}x{W}: device {fb_rec[5, 0]:.4f} ms per call ({N_LAUNCH} "
-        f"launches; rows alone {fb_rec[5, 1]:.4f} ms, columns alone {fb_rec[5, 2]:.4f} ms; M=2 "
-        f"{fb_rec[2, 0]:.4f} ms, rows {fb_rec[2, 1]:.4f}, columns {fb_rec[2, 2]:.4f}; through the "
-        f"wrapper {kern:.4f} ms), plain {plain1:.4f} / {plain2:.4f} ms (order plain, kernel, "
-        f"plain); bound {fb_bound * 1e3:.3f} us (bytes {fb_by_bytes * 1e3:.3f} us for {fb_bytes} "
+    log(f"[times] fb_smooth M=5 {H}x{W}: device {fb_rec[5]:.4f} ms per call ({N_LAUNCH} "
+        f"launches; M=2 {fb_rec[2]:.4f} ms; through the wrapper {kern:.4f} ms), plain "
+        f"{plain1:.4f} / {plain2:.4f} ms (order plain, kernel, plain); bound {fb_bound * 1e3:.3f} us (bytes {fb_by_bytes * 1e3:.3f} us for {fb_bytes} "
         f"B, FP32 {fb_fp32 * 1e3:.3f} us, special-function {fb_sfu * 1e3:.3f} us); serial floor "
         f"{chain_ms * 1e3:.3f} us ({H + W} forward + backward step pairs at {pair_ns:.3f} ns "
         f"each, timed on one thread); the chunked design's chain floor {chunked_ms * 1e3:.3f} us "
@@ -758,13 +725,11 @@ def phase_times(np, torch, bi, sass, parent=None):
     pa2 = event_ms(torch, plain_accept, 10)
     log(f"[times] cost accept K=10: plain composition {pa1:.4f} / {pa2:.4f} ms, kernel through "
         f"the wrapper {wrap:.4f} ms per call ({N_LAUNCH} calls; order plain, kernel, plain)")
-    fb_record = dict(ms=fb_rec[5, 0], plain_ms=min(plain1, plain2), bound_ms=fb_bound,
+    fb_record = dict(ms=fb_rec[5], plain_ms=min(plain1, plain2), bound_ms=fb_bound,
                      bound_by="bytes" if fb_by_bytes >= max(fb_fp32, fb_sfu) else "operations",
-                     ms_m2=fb_rec[2, 0], rows_ms=fb_rec[5, 1], cols_ms=fb_rec[5, 2],
-                     chain_floor_ms=chain_ms, chain_step_pair_ns=pair_ns,
+                     ms_m2=fb_rec[2], chain_floor_ms=chain_ms, chain_step_pair_ns=pair_ns,
                      chain_floor_new_ms=chunked_ms, combine_pair_ns=comb_ns,
-                     parent_ms=parent_ms, parent_max_diff=parent_err, by_chunks=by_chunks,
-                     chunks_rows=chunks[0], chunks_cols=chunks[1])
+                     parent_ms=ab and ab["a"]["ms"], parent_ab=ab)
     c10 = cost_rec[10]
     cost_record = dict(ms=c10["accept"], plain_ms=min(pa1, pa2), bound_ms=c10["bound"]["accept"],
                        bound_by=c10["bound_by"], score_ms=c10["score"],
@@ -1880,8 +1845,8 @@ def main():
 
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit (e.g. unpacked from git archive): its "
-                         "fb_smooth kernel is built and timed beside this tree's")
+                    help="another checkout (e.g. the parent commit unpacked from git archive): "
+                         "its fb_smooth kernel is timed beside this tree's (tools/fb_smooth_ab.py)")
     opt = ap.parse_args()
     t_run = time.perf_counter()
     smi = phase_device(torch)
@@ -1891,7 +1856,6 @@ def main():
     from voldor_tpu_torch.utils.evaluation import ate_rmse
     from voldor_tpu_torch.vo import engine as engine_mod
 
-    parent = start_parent_build(opt.parent) if opt.parent else None
     phase_build()
     sass = sass_counts()
 
@@ -1902,7 +1866,7 @@ def main():
     fb_err, fb_chunk_err = phase_fb(np, torch, bi)
     score_err = phase_score(np, torch, bi)
     accept_frac = phase_accept(np, torch, bi)
-    fb_rec, cost_rec = phase_times(np, torch, bi, sass, parent)
+    fb_rec, cost_rec = phase_times(np, torch, bi, sass, opt.parent)
 
     # the slice, counted: every launch from here on is the main path's
     reset_counts()
@@ -2003,13 +1967,9 @@ def main():
             "chain_step_pair_ns": fb_rec["chain_step_pair_ns"],
             "combine_pair_ns": fb_rec["combine_pair_ns"],
             "parent_ms": fb_rec["parent_ms"],
-            "parent_max_diff": fb_rec["parent_max_diff"],
+            "parent_ab": fb_rec["parent_ab"],
             "max_abs_err_chunked": fb_chunk_err,
             "ms_m2": fb_rec["ms_m2"],
-            "rows_ms": fb_rec["rows_ms"],
-            "cols_ms": fb_rec["cols_ms"],
-            "chunks": [fb_rec["chunks_rows"], fb_rec["chunks_cols"]],
-            "ms_by_chunks": fb_rec["by_chunks"],
         },
         {
             "name": "cost_map_tracked",

@@ -50,7 +50,7 @@ def test_fb_smooth_reference_matches_jax(shape):
     np.testing.assert_allclose(t.numpy(), j, **TOL)
 
 
-@pytest.mark.parametrize("chunks", [1, 3, 32, None])  # None: the kernel's (rows, columns)
+@pytest.mark.parametrize("chunks", [1, 3, 32, None])  # None: the kernel's CHUNKS
 @pytest.mark.parametrize("shape", SHAPES)
 def test_fb_smooth_chunked_reference_matches_jax(shape, chunks):
     prob = _stack(shape)

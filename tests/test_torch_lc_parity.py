@@ -10,13 +10,15 @@ candidates and loop-closure links, each link's consistency within
 LC_CONSISTENCY_TOL of the JAX package's and its accept decision equal, and
 pass the bench's gate.
 
-LC_CONSISTENCY_TOL: at the bench's size, the same comparison
-(tools/lc_port_vs_jax_cpu.py) found the two packages' LC link consistencies
-within 0.0016 of each other on all but one lane, and within 0.029 on that
-one, the (25, 40) link, whose photometric stage is ill-conditioned on this
-planar scene: the JAX package's own falign lands between 0.877 and 0.993 on
-inputs that differ in the last bits. 0.05 holds that spread and stays far
-below the distance from a good link (~0.99) to the 0.75 gate.
+LC_CONSISTENCY_TOL: at this size the two passes make four LC links, (0, 10),
+(2, 8), (2, 10) and (4, 10), with consistencies 0.9904-0.9973 that differ
+by at most 0.0010 between the packages, the same in three runs on one CPU
+(the (4, 10) link: 0.9944 in the port, 0.9934 in the JAX package; the
+consistencies are logged to 1e-4). 0.005 is five times that reading: room
+for another CPU's last bits (the same comparison at the bench's size,
+tools/lc_port_vs_jax_cpu.py, found the well-conditioned links within
+0.0016 of each other), while a fault in the port's falign that moves a
+link by 0.01 or more fails the test.
 
 Marked slow: the JAX package's pass compiles its solvers on the CPU, ~90 s
 of the test's ~110 s (the port's pass takes ~18 s).
@@ -39,7 +41,7 @@ from test_torch_lc import LC_F, LC_FLOWS, LC_H, LC_SETTINGS, LC_W, lc_scene, one
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 from jax_slam_reference import _kf_after_query  # noqa: E402
 
-LC_CONSISTENCY_TOL = 0.05
+LC_CONSISTENCY_TOL = 0.005
 
 
 def _run(cls, scene, **extra):

@@ -15,17 +15,16 @@
 // fb_chain_probe_kernel), 40x the time the bytes take (~1.4 us at M = 5,
 // 185 x 613). So the design cuts the chain, not the traffic.
 //
-// Design: a chunked log-depth scan, a group of C threads per line (C = 8,
-// 16 or 32 chunks, one warp or a part of one; the wrapper picks C for each
-// pass), two launches (rows, then columns, through the scratch stack `mid`).
-// * A line of n positions is cut into C chunks of L = ceil(n / C); lane t
-//   of the group owns positions [t L, (t + 1) L). Each line step is a
+// Design: a chunked log-depth scan, one warp per line, two launches (rows,
+// then columns, through the scratch stack `mid`).
+// * A line of n positions is cut into 32 chunks of L = ceil(n / 32); lane t
+//   owns positions [t L, (t + 1) L). Each line step is a
 //   Moebius map prev' = (a prev + b) / (c prev + d)
 //   (voldor_tpu/ops/fb_smooth.py:52, :68), so a lane composes its chunk's
 //   forward and backward maps in registers (renormalised by the largest
 //   entry and flushed below 1e-12 at every product, as _mobius_combine :29
 //   does; positions past the line's end are identity maps).
-// * A shuffle scan of the chunk maps over the group (log2 C steps each way)
+// * A shuffle scan of the chunk maps over the warp (5 steps each way)
 //   gives every lane the message at the end of its neighbouring chunk: the
 //   forward prefix applied to the first position's probability, the
 //   backward suffix applied to the last's.
@@ -36,15 +35,14 @@
 //   within a few steps (ops/fb_smooth.py:fb_smooth_chunked_reference is
 //   this arithmetic in plain torch, op for op).
 // * The lines sit in shared memory in the chunked layout, chunk t of a
-//   line at t * S with S = L | 1 (odd), the lines of a warp one after the
-//   other and one float of padding after each warp's lines, so the 32
-//   lanes of a warp hit 32 distinct banks; the forward and backward
-//   messages get two more such buffers. Rows: each group loads its row
+//   line at t * S with S = L | 1 (odd), one float of padding after each
+//   line, so the 32 lanes of a warp hit 32 distinct banks; the forward and backward
+//   messages get two more such buffers. Rows: each warp loads its row
 //   coalesced. Columns: a block loads a tile of columns row by row
-//   (consecutive threads on consecutive columns) and each group smooths
+//   (consecutive threads on consecutive columns) and each warp smooths
 //   one column of the tile.
-// The dependent chain per line pass is L compositions, log2 C scan steps
-// and L walk steps (20 + 5 + 20 per row at w = 613 and C = 32), against
+// The dependent chain per line pass is L compositions, 5 scan steps and L
+// walk steps (20 + 5 + 20 per row at w = 613), against
 // w (or h) step pairs on one thread.
 //
 // Numerics: the JAX operation order of fwd_step / bwd_step (:145-155) and of
@@ -59,7 +57,7 @@
 
 namespace {
 
-constexpr int kLanes = 32;
+constexpr int kLanes = 32;  // chunks per line: one warp's lanes
 constexpr int kRowWarps = 4;     // warps per block of the row kernel, at most
 constexpr int kColWarps = 8;     // warps per block of the column kernel, at most
 constexpr int kMaxDevices = 64;
@@ -134,46 +132,34 @@ __device__ __forceinline__ float apply(const Mob& m, float x) {
   return num / (fabsf(den) < 1e-30f ? 1e-30f : den);
 }
 
-template <int C>
-__device__ __forceinline__ Mob shfl_up(unsigned mask, const Mob& v, int k) {
-  return Mob{__shfl_up_sync(mask, v.a, k, C), __shfl_up_sync(mask, v.b, k, C),
-             __shfl_up_sync(mask, v.c, k, C), __shfl_up_sync(mask, v.d, k, C)};
+__device__ __forceinline__ Mob shfl_up(const Mob& v, int k) {
+  return Mob{__shfl_up_sync(kFull, v.a, k), __shfl_up_sync(kFull, v.b, k),
+             __shfl_up_sync(kFull, v.c, k), __shfl_up_sync(kFull, v.d, k)};
 }
 
-template <int C>
-__device__ __forceinline__ Mob shfl_down(unsigned mask, const Mob& v, int k) {
-  return Mob{__shfl_down_sync(mask, v.a, k, C), __shfl_down_sync(mask, v.b, k, C),
-             __shfl_down_sync(mask, v.c, k, C), __shfl_down_sync(mask, v.d, k, C)};
+__device__ __forceinline__ Mob shfl_down(const Mob& v, int k) {
+  return Mob{__shfl_down_sync(kFull, v.a, k), __shfl_down_sync(kFull, v.b, k),
+             __shfl_down_sync(kFull, v.c, k), __shfl_down_sync(kFull, v.d, k)};
 }
 
 // Position i of a line in the chunked layout.
 __device__ __forceinline__ int slot(int i, int L, int S) { return (i / L) * S + i % L; }
 
-// The lanes of this thread's group of C in its warp.
-template <int C>
-__device__ __forceinline__ unsigned group_mask() {
-  return C == kLanes ? kFull : ((1u << C) - 1) << (threadIdx.x % kLanes / C * C);
-}
-
-// Offset of local line j's region in each of the p, f, b buffers: C * S
-// floats a line, one float of padding after each warp's lines. A warp's
-// lanes then sit S apart (S odd), and a column tile's first row, stored by
-// consecutive threads, lands on distinct banks.
-template <int C>
-__device__ __forceinline__ int line_base(int j, int S) { return j * C * S + j / (kLanes / C); }
+// Offset of local line j's region in each of the p, f, b buffers: 32 * S
+// floats a line, one float of padding after each. A warp's lanes then sit
+// S apart (S odd), and a column tile's first row, stored by consecutive
+// threads, lands on distinct banks.
+__host__ __device__ __forceinline__ int line_base(int j, int S) { return j * (kLanes * S + 1); }
 
 // Length of each of the p, f, b buffers for `lines` local lines.
-template <int C>
-int buffer_len(int lines, int S) { return lines * C * S + lines / (kLanes / C) + 1; }
+int buffer_len(int lines, int S) { return line_base(lines, S) + 1; }
 
-// Smooths one line of n >= 1 positions, called by all C lanes of a group.
+// Smooths one line of n >= 1 positions, called by all 32 lanes of a warp.
 // p holds the line in the chunked layout (chunk t at t * S, L positions
 // each); the posterior is written over it. f and b are scratch of the same
 // layout.
-template <int C>
 __device__ void smooth_line(float* p, float* f, float* b, int n, int L, int S, const Hmm& m) {
-  const unsigned mask = group_mask<C>();
-  const int lane = threadIdx.x % C;
+  const int lane = threadIdx.x % kLanes;
   const int cnt = max(0, min(L, n - lane * L));  // real positions of this chunk
   float* pc = p + lane * S;
   float* fc = f + lane * S;
@@ -190,19 +176,19 @@ __device__ void smooth_line(float* p, float* f, float* b, int n, int L, int S, c
   // inclusive scans: F over this and the earlier chunks, B over this and
   // the later ones
 #pragma unroll
-  for (int k = 1; k < C; k *= 2) {
-    const Mob fo = shfl_up<C>(mask, F, k);
-    const Mob bo = shfl_down<C>(mask, B, k);
+  for (int k = 1; k < kLanes; k *= 2) {
+    const Mob fo = shfl_up(F, k);
+    const Mob bo = shfl_down(B, k);
     if (lane >= k) F = combine(fo, F);
-    if (lane + k < C) B = combine(bo, B);
+    if (lane + k < kLanes) B = combine(bo, B);
   }
   // carry-in messages: the neighbouring chunk's end message
   const float init_f = p[0];
   const float init_b = p[slot(n - 1, L, S)];
-  const float mf = __shfl_up_sync(mask, apply(F, init_f), 1, C);
-  const float mb = __shfl_down_sync(mask, apply(B, init_b), 1, C);
+  const float mf = __shfl_up_sync(kFull, apply(F, init_f), 1);
+  const float mb = __shfl_down_sync(kFull, apply(B, init_b), 1);
   float pf = lane == 0 ? init_f : mf;
-  float pb = lane == C - 1 ? init_b : mb;
+  float pb = lane == kLanes - 1 ? init_b : mb;
   // the exact serial steps over the chunk, both directions at once
   for (int k = 0; k < cnt; ++k) {
     pf = fwd_step(pf, pc[k], m);
@@ -214,18 +200,17 @@ __device__ void smooth_line(float* p, float* f, float* b, int n, int L, int S, c
   for (int k = 0; k < cnt; ++k) pc[k] = posterior(fc[k], bc[k]);
 }
 
-// Each group of C threads smooths one row: loads it coalesced, smooths it,
-// stores it.
-template <int C>
+// Each warp smooths one row: loads it coalesced, smooths it, stores it.
 __global__ void __launch_bounds__(kRowWarps * kLanes)
 fb_rows_kernel(const float* __restrict__ in, float* __restrict__ out, int lines, int n,
                int L, int S, int len, Hmm m) {
+  constexpr int C = kLanes;
   extern __shared__ float smem[];
   const int j = threadIdx.x / C;  // local line
   const int lane = threadIdx.x % C;
   const int line = blockIdx.x * (blockDim.x / C) + j;
-  if (line >= lines) return;  // the whole group: no block-wide barrier follows
-  float* p = smem + line_base<C>(j, S);
+  if (line >= lines) return;  // the whole warp: no block-wide barrier follows
+  float* p = smem + line_base(j, S);
   float* f = p + len;
   float* b = f + len;
   const float* src = in + (size_t)line * n;
@@ -238,17 +223,16 @@ fb_rows_kernel(const float* __restrict__ in, float* __restrict__ out, int lines,
     p[slot(i + 3 * C, L, S)] = v3;
   }
   for (; i < n; i += C) p[slot(i, L, S)] = src[i];
-  __syncwarp(group_mask<C>());
-  smooth_line<C>(p, f, b, n, L, S, m);
-  __syncwarp(group_mask<C>());
+  __syncwarp();
+  smooth_line(p, f, b, n, L, S, m);
+  __syncwarp();
   float* dst = out + (size_t)line * n;
   for (i = lane; i < n; i += C) dst[i] = p[slot(i, L, S)];
 }
 
-// blockIdx.y: the map; blockIdx.x: a tile of `tile` columns, one group of C
-// threads each. The tile is loaded and stored row by row (consecutive
-// threads on consecutive columns).
-template <int C>
+// blockIdx.y: the map; blockIdx.x: a tile of `tile` columns, one warp
+// each. The tile is loaded and stored row by row (consecutive threads on
+// consecutive columns).
 __global__ void __launch_bounds__(kColWarps * kLanes)
 fb_cols_kernel(const float* __restrict__ in, float* __restrict__ out, int h, int w, int L,
                int S, int tile, int len, Hmm m) {
@@ -258,18 +242,18 @@ fb_cols_kernel(const float* __restrict__ in, float* __restrict__ out, int h, int
   const size_t base = (size_t)blockIdx.y * h * w + x0;
   for (int i = threadIdx.x; i < h * nc; i += blockDim.x) {
     const int y = i / nc, c = i - y * nc;
-    smem[line_base<C>(c, S) + slot(y, L, S)] = in[base + (size_t)y * w + c];
+    smem[line_base(c, S) + slot(y, L, S)] = in[base + (size_t)y * w + c];
   }
   __syncthreads();
-  const int c = threadIdx.x / C;
+  const int c = threadIdx.x / kLanes;
   if (c < nc) {
-    float* p = smem + line_base<C>(c, S);
-    smooth_line<C>(p, p + len, p + 2 * len, h, L, S, m);
+    float* p = smem + line_base(c, S);
+    smooth_line(p, p + len, p + 2 * len, h, L, S, m);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < h * nc; i += blockDim.x) {
     const int y = i / nc, c2 = i - y * nc;
-    out[base + (size_t)y * w + c2] = smem[line_base<C>(c2, S) + slot(y, L, S)];
+    out[base + (size_t)y * w + c2] = smem[line_base(c2, S) + slot(y, L, S)];
   }
 }
 
@@ -314,42 +298,39 @@ cudaError_t allow_smem(const void* kernel, std::atomic<int>* cache, int* limit) 
 
 // Warps per block, at most `most`, whose three buffers fit in `limit` bytes;
 // 0 if not even one warp's do.
-template <int C>
 int warps_that_fit(int most, int S, int limit) {
   for (int wp = most; wp >= 1; --wp)
-    if (3ull * buffer_len<C>(wp * (kLanes / C), S) * sizeof(float) <= (size_t)limit) return wp;
+    if (3ull * buffer_len(wp, S) * sizeof(float) <= (size_t)limit) return wp;
   return 0;
 }
 
-template <int C>
 cudaError_t launch_rows(const float* in, float* out, int lines, int n, const Hmm& hmm,
                         cudaStream_t s) {
   static std::atomic<int> cache[kMaxDevices];
   int limit = 0;
-  cudaError_t err = allow_smem((const void*)fb_rows_kernel<C>, cache, &limit);
+  cudaError_t err = allow_smem((const void*)fb_rows_kernel, cache, &limit);
   if (err != cudaSuccess) return err;
-  const int L = (n + C - 1) / C, S = L | 1;
-  const int warps = warps_that_fit<C>(kRowWarps, S, limit);
+  const int L = (n + kLanes - 1) / kLanes, S = L | 1;
+  const int warps = warps_that_fit(kRowWarps, S, limit);
   if (warps < 1) return cudaErrorInvalidValue;
-  const int lpb = warps * (kLanes / C), len = buffer_len<C>(lpb, S);
-  fb_rows_kernel<C><<<(lines + lpb - 1) / lpb, warps * kLanes, 3ull * len * sizeof(float), s>>>(
+  const int len = buffer_len(warps, S);
+  fb_rows_kernel<<<(lines + warps - 1) / warps, warps * kLanes, 3ull * len * sizeof(float), s>>>(
       in, out, lines, n, L, S, len, hmm);
   return cudaGetLastError();
 }
 
-template <int C>
 cudaError_t launch_cols(const float* in, float* out, int m, int h, int w, const Hmm& hmm,
                         cudaStream_t s) {
   static std::atomic<int> cache[kMaxDevices];
   int limit = 0;
-  cudaError_t err = allow_smem((const void*)fb_cols_kernel<C>, cache, &limit);
+  cudaError_t err = allow_smem((const void*)fb_cols_kernel, cache, &limit);
   if (err != cudaSuccess) return err;
-  const int L = (h + C - 1) / C, S = L | 1;
-  const int warps = warps_that_fit<C>(kColWarps, S, limit);
-  if (warps < 1) return cudaErrorInvalidValue;
-  const int tile = warps * (kLanes / C), len = buffer_len<C>(tile, S);
+  const int L = (h + kLanes - 1) / kLanes, S = L | 1;
+  const int tile = warps_that_fit(kColWarps, S, limit);
+  if (tile < 1) return cudaErrorInvalidValue;
+  const int len = buffer_len(tile, S);
   dim3 grid((w + tile - 1) / tile, m);
-  fb_cols_kernel<C><<<grid, warps * kLanes, 3ull * len * sizeof(float), s>>>(
+  fb_cols_kernel<<<grid, tile * kLanes, 3ull * len * sizeof(float), s>>>(
       in, out, h, w, L, S, tile, len, hmm);
   return cudaGetLastError();
 }
@@ -360,37 +341,17 @@ Hmm make_hmm(const float* c) { return Hmm{c[0], c[1], c[2], c[3], c[4], c[5], c[
 
 // Smooths the (m, h, w) stack `in` into `out`, through the scratch stack
 // `mid` (the row pass's result); all three device pointers, contiguous.
-// consts: the 7 HMM constants of struct Hmm, host memory. row_chunks,
-// col_chunks: chunks per row and per column, each 8, 16 or 32. pass: 0
-// both passes, 1 the row pass alone (in -> mid), 2 the column pass alone
-// (mid -> out); the last two only time the passes apart. Returns a
+// consts: the 7 HMM constants of struct Hmm, host memory. Returns a
 // cudaError_t as int (0 = launched). Launches on `stream` and does not
 // synchronise; allocates nothing.
 extern "C" int fb_smooth_launch(const float* in, float* mid, float* out, int m, int h, int w,
-                                const float* consts, int row_chunks, int col_chunks, int pass,
-                                void* stream) {
-  if (m < 1 || h < 1 || w < 1 || pass < 0 || pass > 2) return (int)cudaErrorInvalidValue;
+                                const float* consts, void* stream) {
+  if (m < 1 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Hmm hmm = make_hmm(consts);
-  cudaError_t err = cudaSuccess;
-  if (pass != 2) {
-    switch (row_chunks) {
-      case 8: err = launch_rows<8>(in, mid, m * h, w, hmm, s); break;
-      case 16: err = launch_rows<16>(in, mid, m * h, w, hmm, s); break;
-      case 32: err = launch_rows<32>(in, mid, m * h, w, hmm, s); break;
-      default: err = cudaErrorInvalidValue;
-    }
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (pass != 1) {
-    switch (col_chunks) {
-      case 8: err = launch_cols<8>(mid, out, m, h, w, hmm, s); break;
-      case 16: err = launch_cols<16>(mid, out, m, h, w, hmm, s); break;
-      case 32: err = launch_cols<32>(mid, out, m, h, w, hmm, s); break;
-      default: err = cudaErrorInvalidValue;
-    }
-  }
-  return (int)err;
+  const cudaError_t err = launch_rows(in, mid, m * h, w, hmm, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_cols(mid, out, m, h, w, hmm, s);
 }
 
 // fb_chain_probe_kernel (which = 0) or fb_combine_probe_kernel (which = 1)

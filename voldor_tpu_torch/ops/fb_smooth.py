@@ -39,12 +39,11 @@ from voldor_tpu_torch.ops import _build
 # chip smoke test reads it to show the main path went through the kernel).
 fb_smooth_kernel_launches = 0
 
-# The kernel's chunks per row and per column (8, 16 or 32 each: a line's
-# group of threads), chosen by the device times chip_smoke.py prints.
-ROW_CHUNKS, COL_CHUNKS = 32, 32
+# The kernel's chunks per line, rows and columns alike: one warp's lanes.
+CHUNKS = 32
 N_CONSTS = 7
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-             + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p])
 
 
 def _constants(s0_ems_prob, no_change_prob):
@@ -210,16 +209,12 @@ def _chunked_line(prob, c, chunks):
 
 
 def fb_smooth_chunked_reference(prob: torch.Tensor, s0_ems_prob: float, no_change_prob: float,
-                                chunks: int | tuple[int, int] | None = None) -> torch.Tensor:
+                                chunks: int | None = None) -> torch.Tensor:
     """The kernel's chunked arithmetic in plain torch: rows then columns,
-    each line cut into chunks of ceil(n / chunks). ``chunks``: one count for
-    both passes or (rows, columns); by default the kernel's (ROW_CHUNKS,
-    COL_CHUNKS), with which it rounds as the kernel does."""
-    rc, cc = (ROW_CHUNKS, COL_CHUNKS) if chunks is None else (
-        (chunks, chunks) if isinstance(chunks, int) else chunks)
-    c = _constants(s0_ems_prob, no_change_prob)
-    prob = _chunked_line(prob, c, rc)
-    return _chunked_line(prob.transpose(-1, -2), c, cc).transpose(-1, -2).contiguous()
+    each line cut into ``chunks`` chunks of ceil(n / chunks); by default the
+    kernel's CHUNKS, with which it rounds as the kernel does."""
+    return _rows_then_cols(_chunked_line, prob, _constants(s0_ems_prob, no_change_prob),
+                           CHUNKS if chunks is None else chunks)
 
 
 def fb_smooth(prob: torch.Tensor, s0_ems_prob: float, no_change_prob: float,
@@ -253,8 +248,8 @@ def fb_smooth(prob: torch.Tensor, s0_ems_prob: float, no_change_prob: float,
     consts = _constants_array(float(s0_ems_prob), float(no_change_prob))
     fn = _build.function("fb_smooth_launch", _ARGTYPES)
     with torch.cuda.device(prob.device):  # the launch goes to the current device
-        err = fn(prob.data_ptr(), mid.data_ptr(), out.data_ptr(), m, h, w, consts, ROW_CHUNKS,
-                 COL_CHUNKS, 0, torch.cuda.current_stream(prob.device).cuda_stream)
+        err = fn(prob.data_ptr(), mid.data_ptr(), out.data_ptr(), m, h, w, consts,
+                 torch.cuda.current_stream(prob.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fb_smooth kernel launch failed: cudaError {err}")
     fb_smooth_kernel_launches += 1
