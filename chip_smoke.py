@@ -115,10 +115,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 17. mono-scaled: phase 11's scene and disparities through
    VOLDOR_SLAM(mode="mono-scaled", device="cuda") with basefocal = bf
    (bench.py:run_stereo): one checked pass under the bench's gate for the
-   mode (metric ATE < 0.05 * extent), then one timed pass.
+   mode (metric ATE < 0.05 * extent), then one timed pass;
+18. slam-mono reference-exact: the JAX package's golden oracle
+   (tests/test_parity.py:45-49: sequential sweep, traced collect, projected
+   cost, full-grid pool, per-round prior sampling) appended to phase 10's
+   configuration, over the same 24 flows at 613x185: one checked pass
+   (the cost kernel never launched, fb_smooth launched, the projected
+   cost's calls timed behind synchronised timers for its share of the
+   pass, Sim3 ATE < 0.02 * extent), one timed pass (frames/s), and a
+   pass of the shipped defaults held to tests/test_parity.py's clean
+   limits of it (mutual Sim3 ATE / extent < 0.02, median gauge-normalised
+   keyframe-depth deviation < 0.05); the oracle's sibling options
+   (--lambdatwist 0, --depth_local_prop_mode exact with the projected cost,
+   the hybrid sweep with the traced collect), each over the first two
+   5-flow windows under the gate; save_result of one window engine with
+   --save_everything --kitti_estimate_ground 1 (the file set, depth.npy
+   equal to the engine's depth, a finite ground estimate), and a
+   VOLDOR_SLAM pass over 15 flows with debug_dir (every window's files).
 
-The kernels' launch counts sum the main-path phases (7, 10, 11, 15, 16 and
-17; phase 16's child process prints its own counts).
+The kernels' launch counts sum the main-path phases (7, 10, 11, 15, 16, 17
+and 18; phase 16's child process prints its own counts).
 The second-to-last line of stdout is a JSON record of the kernels; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -737,12 +753,13 @@ def phase_times(np, torch, bi, sass, parent=None):
     return fb_record, cost_record
 
 
-def run_sequence(np, torch, scene, check=False):
-    """Three consecutive windows with 0, 1 and 2 depth priors, driven the way
-    the SLAM layer drives them (voldor_tpu/slam/system.py:535-575).
+def run_sequence(np, torch, scene, check=False, n_windows=N_WINDOWS, extra_config=""):
+    """n_windows consecutive windows (three: with 0, 1 and 2 depth priors),
+    driven the way the SLAM layer drives them
+    (voldor_tpu/slam/system.py:535-575), configured CONFIG + extra_config.
 
-    Returns (cam->world poses of the 16 frames, per-window wall seconds,
-    per-window EM iterations, bootstrap route)."""
+    Returns (cam->world poses of the 5 n_windows + 1 frames, per-window wall
+    seconds, per-window EM iterations, bootstrap route)."""
     import voldor_tpu_torch
     from voldor_tpu_torch.ops.lie import T44_to_pose6, pose6_to_T44
 
@@ -755,7 +772,7 @@ def run_sequence(np, torch, scene, check=False):
     frames_Tcw = []  # cam -> world per frame
     kf = []  # (fid, depth, conf) of earlier window starts, newest first
     walls, iters, route = [], [], None
-    for wi in range(N_WINDOWS):
+    for wi in range(n_windows):
         fid = wi * WINDOW
         kw = {}
         if kf:
@@ -771,7 +788,7 @@ def run_sequence(np, torch, scene, check=False):
         t0 = time.perf_counter()
         win = voldor_tpu_torch.voldor_dispatch(
             flows[fid:fid + WINDOW], FX, FY, W / 2, H / 2, basefocal=BASEFOCAL,
-            config=CONFIG, pad_window_to=WINDOW, device="cuda", **kw,
+            config=CONFIG + extra_config, pad_window_to=WINDOW, device="cuda", **kw,
         )
         res = win.collect()
         depth, conf = win.depth_host(), win.conf_host()
@@ -798,14 +815,15 @@ def run_sequence(np, torch, scene, check=False):
     return np.stack(frames_Tcw), walls, iters, route
 
 
-def make_slam(mode, flows, disps=None):
+def make_slam(mode, flows, disps=None, user_config=""):
     """VOLDOR_SLAM on the card, configured as bench.py:411-425 (mono) and
-    bench.py:171-182 (stereo, mono-scaled) configure it."""
+    bench.py:171-182 (stereo, mono-scaled) configure it, with user_config
+    as its voldor_user_config."""
     from voldor_tpu_torch.slam.system import VOLDOR_SLAM
 
     slam = VOLDOR_SLAM(mode=mode, device="cuda")
     slam.use_image_info = False
-    slam.voldor_user_config = ""
+    slam.voldor_user_config = user_config
     if mode in ("stereo", "mono-scaled"):
         slam.set_cam_params(FX, FY, W / 2, H / 2, basefocal=BF_STEREO)
         slam.disps = list(disps)
@@ -872,10 +890,10 @@ def check_counts(what, counts, em_iters):
         raise AssertionError(f"{what}: the fb_smooth kernel was never launched")
 
 
-def run_slam_pass(np, torch, mode, flows, disps=None, check=False):
+def run_slam_pass(np, torch, mode, flows, disps=None, check=False, user_config=""):
     """One pass of process_vo to the end of the sequence. Returns the SLAM
     object, the pass's wall seconds and its per-pass counts."""
-    slam = make_slam(mode, flows, disps)
+    slam = make_slam(mode, flows, disps, user_config)
     dispatched = []
     dispatch_s = [0.0]
     dispatch = slam._vo_dispatch
@@ -1839,6 +1857,174 @@ def phase_cli(np, torch):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the JAX package's golden oracle (tests/test_parity.py:45-49) and the clean
+# limits it holds the shipped fast path to there (tests/test_parity.py:150-160)
+REFERENCE_EXACT = (
+    " --pose_window_sweep seq --pose_collect_mode traced --depth_cost_mode projected"
+    " --pose_sample_stride 1 --prior_sample_mode round"
+)
+PARITY_ATE = 0.02  # mutual Sim3 ATE over the oracle's extent
+PARITY_DEPTH = 0.05  # median gauge-normalised relative keyframe-depth deviation
+SIBLINGS = {  # the oracle's sibling options, each over the first 2 windows
+    "ap3p": " --lambdatwist 0",
+    "exact-prop": " --depth_local_prop_mode exact --depth_cost_mode projected",
+    "hybrid-traced": " --pose_window_sweep hybrid --pose_collect_mode traced",
+}
+
+
+def parity_readings(np, fast, oracle):
+    """tests/test_parity.py's two readings of a pass against the oracle
+    pass: the Sim3 ATE of its trajectory over the oracle's extent, and the
+    median over the keyframes both passes made of the median relative
+    deviation of the gauge-normalised depth. Returns (ate, depth_dev,
+    shared keyframe ids)."""
+    from voldor_tpu_torch.utils.evaluation import ate_rmse
+
+    ta = np.stack([f.Tcw for f in fast.frames]).astype(np.float64)
+    tb = np.stack([f.Tcw for f in oracle.frames]).astype(np.float64)
+    extent = float(np.linalg.norm(tb[:, :3, 3] - tb[0, :3, 3], axis=1).max())
+    ate = ate_rmse(ta, tb, with_scale=True) / max(extent, 1e-9)
+    shared = sorted(set(fast.kf_ids) & set(oracle.kf_ids))
+    devs = []
+    for fid in shared:
+        da = np.asarray(fast.frames[fid].depth, np.float64)
+        db = np.asarray(oracle.frames[fid].depth, np.float64)
+        da = da * (np.median(db) / max(np.median(da), 1e-9))
+        devs.append(float(np.median(np.abs(da - db) / np.maximum(db, 1e-3))))
+    return ate, (float(np.median(devs)) if devs else float("inf")), shared
+
+
+def phase_reference_exact(np, torch, scene, gt):
+    """slam-mono reference-exact (phase 18 in the module docstring). Returns
+    the oracle's launch counts and a dict of its readings."""
+    import shutil
+    import tempfile
+
+    from voldor_tpu_torch.utils.evaluation import ate_rmse
+    from voldor_tpu_torch.vo import em as em_mod
+    from voldor_tpu_torch.vo.api import voldor_dispatch
+    from voldor_tpu_torch.vo.engine import save_result
+
+    t_phase = time.perf_counter()
+    flows = scene[3]
+    n_frames = flows.shape[0] + 1
+    extent = float(np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=1).max())
+    rec = {}
+
+    # the oracle, checked, with the projected cost's calls timed
+    cost_s = [0.0, 0]
+    orig_cost = em_mod.compute_cost_map
+
+    def timed_cost(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_cost(*a, **k)
+        torch.cuda.synchronize()
+        cost_s[0] += time.perf_counter() - t
+        cost_s[1] += 1
+        return out
+
+    em_mod.compute_cost_map = timed_cost
+    reset_counts()
+    try:
+        oracle, dt0, st = run_slam_pass(np, torch, "mono", flows, check=True, user_config=REFERENCE_EXACT)
+    finally:
+        em_mod.compute_cost_map = orig_cost
+    counts = read_counts()
+    ate = ate_rmse(np.stack([f.Tcw for f in oracle.frames]).astype(np.float64), gt, with_scale=True)
+    rec.update(oracle_ate=ate, cost_map_calls=cost_s[1], cost_map_s=cost_s[0], checked_s=dt0,
+               cost_map_share=cost_s[0] / dt0)
+    log(f"[refexact] oracle checked pass: {n_frames} frames in {dt0:.4f} s; windows "
+        f"{st['windows']}, keyframes {st['keyframes']} {oracle.kf_ids}, vo_steps {st['vo_steps']}, "
+        f"EM iterations {st['em_iters']}; cost kernel launches {counts['cost']}, fb_smooth kernel "
+        f"launches {counts['fb']}; projected cost maps {cost_s[1]} taking {cost_s[0]:.4f} s "
+        f"({100.0 * cost_s[0] / dt0:.1f}% of the pass, synchronised timers); Sim3 ATE {ate:.6f} "
+        f"vs gate {0.02 * extent:.6f}")
+    if counts["cost"] != 0:
+        raise AssertionError(f"the oracle launched the cost kernel {counts['cost']} times")
+    if counts["fb"] < 1 or cost_s[1] < 1:
+        raise AssertionError(f"the oracle's depth rounds did not run: fb {counts['fb']}, "
+                             f"projected cost maps {cost_s[1]}")
+    if not ate < 0.02 * extent:
+        raise AssertionError("the oracle fails the Sim3-ATE gate")
+    oracle, dt, st = run_slam_pass(np, torch, "mono", flows, user_config=REFERENCE_EXACT)
+    ate_t = ate_rmse(np.stack([f.Tcw for f in oracle.frames]).astype(np.float64), gt, with_scale=True)
+    rec.update(oracle_fps=n_frames / dt, oracle_s=dt, oracle_em_iters=st["em_iters"])
+    log(f"[refexact] oracle timed pass: {n_frames / dt:.4f} frames/s ({dt:.4f} s), EM iterations "
+        f"{st['em_iters']}, Sim3 ATE {ate_t:.6f}")
+    if not ate_t < 0.02 * extent:
+        raise AssertionError("the oracle's timed pass fails the Sim3-ATE gate")
+
+    # the shipped fast path against the oracle
+    fast, dt_f, _ = run_slam_pass(np, torch, "mono", flows)
+    m_ate, m_dep, shared = parity_readings(np, fast, oracle)
+    rec.update(fast_fps=n_frames / dt_f, mutual_ate=m_ate, depth_dev=m_dep, shared_kf=shared)
+    log(f"[refexact] fast path ({n_frames / dt_f:.4f} frames/s) vs the oracle: mutual Sim3 ATE / "
+        f"extent {m_ate:.6f} (limit {PARITY_ATE}), median keyframe-depth deviation {m_dep:.6f} "
+        f"(limit {PARITY_DEPTH}) over the shared keyframes {shared} (fast {fast.kf_ids})")
+    if not (m_ate < PARITY_ATE and m_dep < PARITY_DEPTH):
+        raise AssertionError("the fast path is outside the parity limits of the oracle")
+
+    # the sibling options, each over the first 2 windows
+    gt2 = np.linalg.inv(scene[5][:2 * WINDOW + 1])
+    ext2 = float(np.linalg.norm(gt2[:, :3, 3] - gt2[0, :3, 3], axis=1).max())
+    for name, extra in SIBLINGS.items():
+        est, walls, iters, _ = run_sequence(np, torch, scene, check=True, n_windows=2,
+                                            extra_config=extra)
+        a = ate_rmse(est.astype(np.float64), gt2, with_scale=True)
+        rec[f"{name}_ate"] = a
+        rec[f"{name}_s"] = sum(walls)
+        log(f"[refexact] {name} ({extra.strip()}): 2 windows in {sum(walls):.4f} s, EM iterations "
+            f"{iters}, Sim3 ATE {a:.6f} vs gate {0.02 * ext2:.6f}")
+        if not a < 0.02 * ext2:
+            raise AssertionError(f"{name}: fails the Sim3-ATE gate")
+
+    # the debug entry points
+    tmp = Path(tempfile.mkdtemp(prefix="_smoke_refexact_", dir=ROOT))
+    try:
+        win = voldor_dispatch(flows[:WINDOW], FX, FY, W / 2, H / 2, basefocal=BASEFOCAL,
+                              config=CONFIG + " --save_everything --kitti_estimate_ground 1",
+                              device="cuda")
+        win.collect()
+        eng = win.engine
+        save_result(eng, str(tmp / "result"))
+        want = {"depth.npy", "depth.png", "camera_pose.txt", "rigidness_sum.npy"}
+        want |= {f"{k}-{i}.npy" for k in ("rigidness", "flow-viz") for i in range(WINDOW)}
+        got = set(p.name for p in (tmp / "result").iterdir())
+        if got != want:
+            raise AssertionError(f"save_result wrote {sorted(got)}, expected {sorted(want)}")
+        if not np.array_equal(np.load(tmp / "result" / "depth.npy"), eng.depth.cpu().numpy()):
+            raise AssertionError("save_result's depth.npy is not the engine's depth")
+        n_lines = len((tmp / "result" / "camera_pose.txt").read_text().strip().split("\n"))
+        g = eng.ground
+        if n_lines != eng.n_flows or g is None or not (
+                np.isfinite(g.height) and np.isfinite(g.normal).all()):
+            raise AssertionError(f"save_result pose lines {n_lines}, KITTI ground {g}")
+        log(f"[refexact] save_result: {len(got)} files, depth.npy equal to the engine's depth, "
+            f"{n_lines} pose lines; KITTI ground height {g.height:.6f}, normal {g.normal.tolist()}, "
+            f"confidence {g.confidence:.4f}")
+        n_dbg = 3 * WINDOW
+        slam = make_slam("mono", flows[:n_dbg])
+        slam.debug_dir = str(tmp / "debug")
+        fids = []
+        while True:
+            fid = slam.fid_cur
+            if not slam.process_vo():
+                break
+            fids.append(fid)
+        for fid in fids:
+            for part in ("depth.npy", "depth_conf.npy", "rigidness.npy", "invdepth.png"):
+                if not (tmp / "debug" / f"window_{fid:06d}_{part}").exists():
+                    raise AssertionError(f"debug_dir: window {fid} has no {part}")
+        log(f"[refexact] debug_dir over {len(slam.flows)} flows: windows at {fids}, "
+            f"{len(list((tmp / 'debug').iterdir()))} files")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[refexact] phase {rec['phase_s']:.1f} s: {json.dumps(rec)}")
+    return counts, rec
+
+
 def main():
     import numpy as np
     import torch
@@ -1944,7 +2130,11 @@ def main():
     log(f"[slam] mono-scaled {fps_ms:.4f} frames/s (metric ATE {ate_ms:.6f}); the CLI "
         f"{fps_cli:.4f} frames/s over its whole run (Sim3 ATE {ate_cli:.6f}); launches cost / "
         f"fb_smooth: CLI {cli['cost']} / {cli['fb']}, mono-scaled {mscaled['cost']} / {mscaled['fb']}")
-    paths = (win_counts, mono, stereo, full, cli, mscaled)
+    refexact, ref_rec = phase_reference_exact(np, torch, scene, gt)
+    log(f"[refexact] oracle {ref_rec['oracle_fps']:.4f} frames/s beside the fast path's "
+        f"{ref_rec['fast_fps']:.4f} in the same phase; projected cost "
+        f"{100.0 * ref_rec['cost_map_share']:.1f}% of a checked oracle pass")
+    paths = (win_counts, mono, stereo, full, cli, mscaled, refexact)
 
     log(f"[run] {time.perf_counter() - t_run:.1f} s from the device check to here")
     log(f"[device] {smi}")

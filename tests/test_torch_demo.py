@@ -322,8 +322,32 @@ def test_demo_flags_and_defaults(monkeypatch):
     assert (opt.resize, opt.abs_resize, opt.enable_loop_closure) == (0.25, 0.25, "builtin")
     opt = demo.parse_args(base + ["--abs_resize", "1", "--enable_loop_closure", "voc.txt.gz"])
     assert (opt.resize, opt.abs_resize, opt.enable_loop_closure) == (0.5, 1.0, "voc.txt.gz")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        demo.main(base + ["--debug_dir", "d"])
+    # --debug_dir reaches the SLAM object (tests/test_torch_debug.py runs
+    # the dumps); the probe stops main() at the flow loader
+    seen = {}
+
+    class _Stop(Exception):
+        pass
+
+    class _Probe:
+        def __init__(self, mode, device=None):
+            seen["mode"], seen["device"] = mode, device
+
+        def set_cam_params(self, *a, **k):
+            pass
+
+        def flow_loader(self, **k):
+            pass
+
+        def flow_loader_sync(self, *a, **k):
+            seen["debug_dir"] = self.debug_dir
+            raise _Stop
+
+    with monkeypatch.context() as m:
+        m.setattr(tsystem, "VOLDOR_SLAM", _Probe)
+        with pytest.raises(_Stop):
+            demo.main(base + ["--debug_dir", "d", "--device", "cpu"])
+    assert seen == {"mode": "mono", "device": "cpu", "debug_dir": "d"}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):  # no silent CPU run
         demo.main(base)

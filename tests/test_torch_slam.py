@@ -49,6 +49,7 @@ from voldor_tpu_torch.vo import engine as tengine
 
 from synthetic import plane_depth
 from test_slam import CX, CY, FX, FY, H, PLANES, W, _make_sequence
+from test_torch_lc import one_torch_thread  # noqa: F401 (a fixture)
 
 USER_CONFIG = "--n_poses_to_sample 2048 --depth_rand_samples 6"
 
@@ -492,15 +493,16 @@ def test_device_none_raises_without_a_card(monkeypatch, sequence):
 
 
 def test_port_slam_rejects_engine_resize_factor(sequence):
-    """An engine-side --resize_factor is not ported: the window's init
-    reports it, whatever the SLAM layer hands it."""
+    """An engine-side --resize_factor is refused under the SLAM layer, as
+    the JAX package refuses it (engine.py:738-742): the layer hands the
+    engine per-transition flow lists, and resizing is its own duty."""
     slam = TSLAM(mode="mono", device="cpu")
     slam.set_cam_params(FX, FY, CX, CY)
     slam.voldor_user_config = USER_CONFIG + " --resize_factor 0.5"
     slam.flows = [f for f in sequence[1]]
     slam.N_FRAMES = len(slam.flows) + 1
     slam.flow_loader_pt = len(slam.flows)
-    with pytest.raises(NotImplementedError, match="resize_factor"):
+    with pytest.raises(ValueError, match="resize_factor"):
         slam.process_vo()
 
 
@@ -508,11 +510,13 @@ def test_port_slam_rejects_engine_resize_factor(sequence):
     "debug_dir", "kitti_estimate_ground", "resize_factor", "loop_closure_without_cv2",
     "image_loader_without_cv2",
 ])
-def test_unported_entry_points_raise(call, sequence, monkeypatch, tmp_path):
-    """What the port still refuses: the options of ROADMAP queue A item 7
-    raise NotImplementedError naming the ROADMAP; loop closure and the
-    image loader raise RuntimeError naming cv2 where it does not import
-    (the JAX package runs on without loop closure there)."""
+def test_unported_entry_points_raise(call, sequence, monkeypatch, tmp_path, one_torch_thread):
+    """The entry points that used to raise: debug_dir now writes the
+    window's dumps and kitti_estimate_ground leaves a finite ground estimate
+    on the window's engine; an engine-side resize_factor raises ValueError
+    under the SLAM layer, as in the JAX package; loop closure and the image
+    loader raise RuntimeError naming cv2 where it does not import (the JAX
+    package runs on without loop closure there)."""
     slam = TSLAM(mode="mono", device="cpu")
     if call.endswith("without_cv2"):
         monkeypatch.setitem(sys.modules, "cv2", None)
@@ -535,8 +539,21 @@ def test_unported_entry_points_raise(call, sequence, monkeypatch, tmp_path):
     slam.N_FRAMES = len(slam.flows) + 1
     slam.h, slam.w = H, W
     slam.flow_loader_pt = len(slam.flows)
-    with pytest.raises(NotImplementedError, match="ROADMAP" if call != "resize_factor" else "resize"):
-        slam.process_vo()
+    if call == "resize_factor":
+        with pytest.raises(ValueError, match="resize_factor"):
+            slam.process_vo()
+        return
+    slam.vo_pipeline = False  # one window is enough
+    handles = []
+    dispatch = slam._vo_dispatch
+    slam._vo_dispatch = lambda inputs: handles.append(dispatch(inputs)) or handles[-1]
+    assert slam.process_vo()
+    if call == "debug_dir":
+        for part in ("depth.npy", "depth_conf.npy", "rigidness.npy"):
+            assert (tmp_path / f"window_000000_{part}").exists()
+    else:
+        g = handles[0].engine.ground
+        assert np.isfinite(g.height) and np.isfinite(g.normal).all()
 
 
 # --------------------------------------------------------------------------

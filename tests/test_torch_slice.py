@@ -179,7 +179,9 @@ def test_port_imports_no_jax():
         "voldor_tpu_torch.ops.fb_smooth, voldor_tpu_torch.ops.cost, voldor_tpu_torch.falign.api, "
         "voldor_tpu_torch.pgo.api, voldor_tpu_torch.pgo.reduce, voldor_tpu_torch.pgo.g2o, "
         "voldor_tpu_torch.slam.loop_closure, voldor_tpu_torch.slam.checkpoint, "
-        "voldor_tpu_torch.slam.viewer, voldor_tpu_torch.slam.huber, voldor_tpu_torch.demo; "
+        "voldor_tpu_torch.slam.viewer, voldor_tpu_torch.slam.huber, voldor_tpu_torch.demo, "
+        "voldor_tpu_torch.ops.ap3p, voldor_tpu_torch.vo.kitti_ground, "
+        "voldor_tpu_torch.utils.debug_viz; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'voldor_tpu' or m.startswith('voldor_tpu.')]; "
         "assert not bad, bad; print('clean')"

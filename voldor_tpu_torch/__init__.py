@@ -13,8 +13,12 @@ viewer) and the demo CLI (``python -m voldor_tpu_torch.demo``), over the VO
 window entry points (``voldor``, ``voldor_dispatch``), frame alignment
 (``falign``, ``falign.api.falign_pairs``) and pose-graph optimisation
 (``pgo``). The VO depth rounds run the hand-written CUDA kernels in
-``csrc/``. Still raising ``NotImplementedError``: the options of ROADMAP
-queue A item 7 (``debug_dir`` among them).
+``csrc/``. The JAX package's reference-exact VO configuration runs here
+too (``--pose_window_sweep seq --pose_collect_mode traced
+--depth_cost_mode projected``, with ``--depth_local_prop_mode exact`` and
+the AP3P solver, ``--lambdatwist 0``), as do the engine's debug entry
+points (``vo/engine.py``: ``solve_stepwise``, ``save_result``, the KITTI
+ground estimate) and the SLAM layer's ``debug_dir``.
 
 Without a ``device`` argument the port runs on the CUDA device and raises
 when there is none; CPU callers pass ``device="cpu"``.

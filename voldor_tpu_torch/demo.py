@@ -9,8 +9,9 @@ Loader threads feed flows (``.flo``), images and disparities; the VO thread
 and, with ``--enable_mapping``, the mapping thread run to the end of the
 sequence; the epilogue writes the poses, depth maps, point cloud and map
 checkpoint asked for. It runs on the CUDA device (``--device cpu`` for a
-CPU run). ``--viewer`` falls back to the headless viewer (the OpenGL window
-is not ported); ``--debug_dir`` is not ported and raises.
+CPU run). ``--viewer`` runs the headless viewer (the JAX package's OpenGL
+window needs a display and PyOpenGL); ``--debug_dir`` writes every window's
+depth, confidence and rigidness maps (``utils/debug_viz.py``).
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def parse_args(argv=None):
     parser.add_argument("--metrics", type=str,
                         help="write per-window/link/PGO JSON-line metrics to this file")
     parser.add_argument("--debug_dir", type=str,
-                        help="per-window debug artifacts (not ported: raises)")
+                        help="dump per-window debug artifacts (rigidness mosaics, inverse depth, "
+                             "confidences) to this directory (reference --debug, voldor.cpp:378-396)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA device; 'cpu' to run on the CPU)")
     opt = parser.parse_args(argv)
@@ -71,10 +73,6 @@ def main(argv=None):
         except ValueError:
             raise SystemExit(f"VOLDOR_WATCHDOG must be a whole number of seconds, not {watchdog!r}")
         faulthandler.dump_traceback_later(seconds, repeat=True)
-    if opt.debug_dir:
-        raise NotImplementedError(
-            "--debug_dir (per-window debug dumps) is not ported yet (ROADMAP queue A, item 7)")
-
     from voldor_tpu_torch.slam.checkpoint import load_map
     from voldor_tpu_torch.slam.system import VOLDOR_SLAM
     from voldor_tpu_torch.slam.viewer import VOLDOR_Viewer
@@ -84,6 +82,8 @@ def main(argv=None):
     slam.voldor_user_config = f"--abs_resize_factor {opt.abs_resize}"
     if opt.metrics:
         slam.metrics.open(opt.metrics)
+    if opt.debug_dir:
+        slam.debug_dir = opt.debug_dir
 
     if opt.enable_loop_closure is not None:
         slam.enable_loop_closure(

@@ -251,6 +251,20 @@ def draw_p4p_indices(gen: torch.Generator, valid: torch.Tensor, n_poses: int) ->
     return torch.minimum(idx, (n_valid - 1)[..., None, None])
 
 
+def select_subsets(p2s, p3s, valid, idx):
+    """The 4-subsets ``idx`` ((..., n_poses, 4) indices into the valid
+    entries in their original order) as (..., n_poses, 4, 2) pixels and
+    (..., n_poses, 4, 3) points."""
+    lead = valid.shape[:-1]
+    n = idx.shape[-2]
+    # stable: valid entries first, in order (argsort(~valid) in JAX)
+    order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+    sel = torch.take_along_dim(order, idx.long().reshape(lead + (n * 4,)), dim=-1)
+    p2_sets = torch.take_along_dim(p2s, sel[..., None], dim=-2).reshape(lead + (n, 4, 2))
+    p3_sets = torch.take_along_dim(p3s, sel[..., None], dim=-2).reshape(lead + (n, 4, 3))
+    return p2_sets, p3_sets
+
+
 def solve_batch_p4p(p2s, p3s, valid, idx, fx, fy, cx, cy):
     """Solve the P4P subsets ``idx`` drawn from the valid correspondences.
 
@@ -259,13 +273,6 @@ def solve_batch_p4p(p2s, p3s, valid, idx, fx, fy, cx, cy):
     order (``draw_p4p_indices``). Returns (rvecs (..., n_poses, 3), tvecs
     (..., n_poses, 3), ok (..., n_poses)).
     """
-    lead = valid.shape[:-1]
-    n = idx.shape[-2]
-    # stable: valid entries first, in order (argsort(~valid) in JAX)
-    order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
-    sel = torch.take_along_dim(order, idx.long().reshape(lead + (n * 4,)), dim=-1)
-    p2_sets = torch.take_along_dim(p2s, sel[..., None], dim=-2).reshape(lead + (n, 4, 2))
-    p3_sets = torch.take_along_dim(p3s, sel[..., None], dim=-2).reshape(lead + (n, 4, 3))
-    rvecs, tvecs, ok = _p4p_batch(p2_sets, p3_sets, fx, fy, cx, cy)
+    rvecs, tvecs, ok = _p4p_batch(*select_subsets(p2s, p3s, valid, idx), fx, fy, cx, cy)
     ok = ok & (valid.sum(dim=-1) >= 4)[..., None]
     return rvecs, tvecs, ok

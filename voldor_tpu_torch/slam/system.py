@@ -12,10 +12,12 @@ mapping half: frame-alignment links (``establish_*`` over ``falign_pairs``),
 the priority-matrix ``mapping_thread`` and ``solve_pgo`` over ``pgo``.
 
 Loop closure, the image loader and the PNG disparity loader need cv2; they
-raise ``RuntimeError`` without it. Not ported: the per-window debug dumps
-(``debug_dir`` raises ``NotImplementedError``, ROADMAP queue A item 7), the
-JAX package's native C++ flow prefetcher (the flow loader reads .flo files
-with ``utils/flow_io.load_flow``) and its TPU compile warm-up thread.
+raise ``RuntimeError`` without it. With ``debug_dir`` set, every window's
+depth, confidence and rigidness maps are written there
+(``utils/debug_viz.py``). The flow loader reads .flo files with
+``utils/flow_io.load_flow``, in place of the JAX package's native C++
+prefetcher; the JAX package's TPU compile warm-up thread has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -45,10 +47,6 @@ from voldor_tpu_torch.utils.flow_io import load_flow
 from voldor_tpu_torch.utils.metrics import MetricsLogger
 from voldor_tpu_torch.vo.api import voldor_dispatch
 from voldor_tpu_torch.vo.engine import DeviceMap, resolve_device
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A, item {item})")
 
 
 def _cv2(what: str):
@@ -127,7 +125,7 @@ class VOLDOR_SLAM:
 
         # internal
         self.metrics = MetricsLogger()  # enable with .metrics.open(path)
-        self.debug_dir = None  # per-window debug dumps: not ported
+        self.debug_dir = None  # per-window debug dumps (utils/debug_viz.py)
         self.vo_pose_warmstart = True  # constant-velocity window pose init
         # cross-window VO pipelining (process_vo docstring): one window is
         # kept in flight across calls; _map_version invalidates it when a
@@ -711,14 +709,16 @@ class VOLDOR_SLAM:
             depth_priors=inputs["depth_priors"],
             depth_prior_pconfs=inputs["depth_prior_pconfs"],
             depth_prior_poses=inputs["depth_prior_poses"],
-            config=self.voldor_config + " " + self.voldor_user_config,
+            config=self.voldor_config + " " + self.voldor_user_config
+            + (" --save_everything" if self.debug_dir else ""),
             pad_window_to=self.voldor_winsize,
             poses_init=inputs["poses_init"],
             covis_spec=inputs["covis_spec"],
             # dense host copies are deferred to keyframe windows
             # (process_vo calls start_host_copies at the kf decision);
-            # mono-scaled fits on the host every window
-            host_copies=self.mode == "mono-scaled",
+            # mono-scaled fits on the host every window, debug dumps need
+            # every map
+            host_copies=(self.mode == "mono-scaled") or bool(self.debug_dir),
             device=self.device,
         )
 
@@ -729,8 +729,6 @@ class VOLDOR_SLAM:
         scores read with the poses. A map write-back between calls bumps
         _map_version and invalidates the in-flight window: it is discarded
         and re-dispatched against the rebased map."""
-        if self.debug_dir:
-            _not_ported("per-window debug dumps (utils/debug_viz.py)", "7")
         _t0 = time.perf_counter()
         win_log = None
         kf_append = None
@@ -757,6 +755,14 @@ class VOLDOR_SLAM:
                 handle = self._vo_dispatch(inputs)
                 self._flow_upload_ahead()
             vo_ret = handle.collect()
+
+            if self.debug_dir:
+                from voldor_tpu_torch.utils.debug_viz import dump_window_debug
+
+                dbg = dict(vo_ret)
+                dbg["depth"] = handle.depth_host()
+                dbg["depth_conf"] = handle.conf_host()
+                dump_window_debug(self.debug_dir, int(self.fid_cur), dbg)
 
             if vo_ret["n_registered"] == 0:
                 print(f"Tracking lost at {self.fid_cur}")

@@ -1,5 +1,6 @@
-"""EM core of the VO engine: rigidness updates, tracked Fisk cost maps and
-the PatchMatch-style depth update (port of ``voldor_tpu/vo/em.py``).
+"""EM core of the VO engine: rigidness updates, the tracked and the
+projected Fisk cost maps and the PatchMatch-style depth update (port of
+``voldor_tpu/vo/em.py``).
 
 Geometry conventions are the JAX package's: ``depth`` lives in the frame-0
 camera; pose f (Rs[f], ts[f]) maps frame-f points to frame f+1; flows[f]
@@ -193,15 +194,19 @@ def precompute_prior_samples(depth, priors, dp_pconfs, dp_confs, dp_Rs, dp_ts, p
     _, px, py, inb = prior_terms(depth, priors, dp_Rs, dp_ts, p)
     target = _sample_stack(priors, px, py)
     cw = _sample_stack(dp_pconfs * dp_confs, px, py)
-    D = priors.shape[0]
-    slot0 = p.disp_delta > 0
-    slot_w = torch.tensor(
-        [p.disp_delta if (slot0 and d == 0) else p.delta for d in range(D)],
-        dtype=torch.float32, device=depth.device,
-    )[:, None, None]
-    weight = torch.where(inb, cw * slot_w, 0.0)
+    weight = torch.where(inb, cw * _slot_weights(priors.shape[0], p, depth.device), 0.0)
     target = torch.where(inb, target, 0.0)
     return target, weight, dp_Rs, dp_ts
+
+
+def _slot_weights(D: int, p: EmParams, device):
+    """(D, 1, 1) per-prior weights: disp_delta for the disparity prior in
+    slot 0 (when disp_delta > 0), delta for the others."""
+    slot0 = p.disp_delta > 0
+    return torch.tensor(
+        [p.disp_delta if (slot0 and d == 0) else p.delta for d in range(D)],
+        dtype=torch.float32, device=device,
+    )[:, None, None]
 
 
 def update_rigidness(depth, flows, Rs, ts, active_n: int, p: EmParams):
@@ -229,6 +234,43 @@ def update_prior_confs(depth, priors, dp_confs, dp_Rs, dp_ts, p: EmParams):
     )
     new = torch.where(target > 0, r, dp_confs)
     return torch.where(inb, new, 0.0)
+
+
+def compute_cost_map(
+    depth, flows, rigidness, Rs, ts, priors, dp_pconfs, dp_confs, dp_Rs, dp_ts,
+    active_n: int, p: EmParams,
+):
+    """Per-pixel Fisk NLL of one candidate depth map with the chain traced
+    for this candidate (``em.py:364``, optimize_depth.cu:140-198): the
+    'projected' cost. The rigidness and prior-confidence maps weigh each
+    term at the home pixel; the disparity prior in slot 0 takes disp_delta.
+    flows or priors may be None (or empty). Pixels whose weights sum to 0
+    get +inf."""
+    h, w = depth.shape
+    cost = torch.zeros((h, w), dtype=torch.float32, device=depth.device)
+    wsum = torch.zeros((h, w), dtype=torch.float32, device=depth.device)
+
+    if flows is not None and flows.shape[0] > 0:
+        rx, ry, obx, oby, inb, _, _ = chain_flow_terms(depth, flows, Rs, ts, active_n, p)
+        r = fisk.rigidness_xy(rx, ry, obx, oby, p.lam, p.abs_resize_factor)
+        c = -rigidness * torch.log(torch.clamp_min(r, 1e-30))
+        cost = cost + torch.where(inb, c, 0.0).sum(dim=0)
+        wsum = wsum + torch.where(inb, rigidness, 0.0).sum(dim=0)
+
+    if priors is not None and priors.shape[0] > 0:
+        oz, px, py, inb = prior_terms(depth, priors, dp_Rs, dp_ts, p)
+        target = _sample_stack(priors, px, py)
+        pconf = _sample_stack(dp_pconfs, px, py)
+        conf = _sample_stack(dp_confs, px, py)
+        weight = pconf * conf * _slot_weights(priors.shape[0], p, depth.device)
+        r = fisk.depth_rigidness(
+            oz, torch.clamp_min(target, 1e-12), p.basefocal, p.omega, p.abs_resize_factor
+        )
+        use = inb & (target > 0)
+        cost = cost + torch.where(use, -weight * torch.log(torch.clamp_min(r, 1e-30)), 0.0).sum(dim=0)
+        wsum = wsum + torch.where(use, weight, 0.0).sum(dim=0)
+
+    return normalize_cost(cost, wsum)
 
 
 # --------------------------------------------------------------------------
@@ -287,13 +329,13 @@ def optimize_depth(
     range_factor: float = 1.0, local_prop_mode: str = "jump",
 ):
     """One depth-update round, accepting one proposal map at a time
-    (``em.py:441``, ``jump`` mode). ``cost_fn(depth) -> cost map``; ``u``
-    holds the (n_rand, h, w) proposal uniforms. Returns (depth, cost)."""
-    if local_prop_mode != "jump":
-        raise NotImplementedError(
-            f"local_prop_mode {local_prop_mode!r}: only 'jump' is ported "
-            "(ROADMAP queue A, item 7 of the port list)"
-        )
+    (``em.py:441``). ``cost_fn(depth) -> cost map``; ``u`` holds the
+    (n_rand, h, w) proposal uniforms. Local propagation runs as
+    jump-flooding sweeps ('jump') or as the reference's serial chains
+    within chunks of ``local_prop_width`` ('exact': 4 x (width - 1) masked
+    accepts, each scoring a whole map). Returns (depth, cost)."""
+    if local_prop_mode not in ("jump", "exact"):
+        raise ValueError(f"unknown local_prop_mode {local_prop_mode}")
     h, w = depth.shape
 
     def accept(depth, cost, cand, mask):
@@ -312,13 +354,33 @@ def optimize_depth(
             mask = _global_mask(h, w, along_x, start_hi, global_prop_step, depth.device)
             depth, cost = accept(depth, cost, cand, valid & mask)
 
-    if local_prop_width > 0:
+    if local_prop_width > 0 and local_prop_mode == "jump":
         offsets = _jump_offsets(local_prop_width)
         for sy, sx in _LOCAL_DIRS:
             for o in offsets:
                 cand, valid = _shift_depth(depth, sy * o, sx * o)
                 depth, cost = accept(depth, cost, cand, valid)
+    elif local_prop_width > 0:
+        for dy, dx in _LOCAL_DIRS:
+            for k in range(1, local_prop_width):
+                cand, valid = _shift_depth(depth, dy, dx)
+                mask = _chain_mask(h, w, dy, dx, k, local_prop_width, depth.device)
+                depth, cost = accept(depth, cost, cand, valid & mask)
     return depth, cost
+
+
+def _chain_mask(h, w, dy, dx, k, width, device):
+    """Step k of the exact chains (``em.py:537-558``): the pixels at chunk
+    position k (k-th from the far end for the R2L and B2T chains) take
+    their (dy, dx) neighbour's depth."""
+    n = w if dx != 0 else h
+    idx = torch.arange(n, device=device)
+    km = k % width
+    if dx == -1 or dy == -1:  # L2R, T2B
+        sel = ((idx % width) == km) & (idx >= 1)
+    else:  # R2L, B2T
+        sel = ((idx % width) == (width - 1 - km) % width) & (idx <= n - 2)
+    return sel[None, :] if dx != 0 else sel[:, None]
 
 
 def optimize_depth_batched(

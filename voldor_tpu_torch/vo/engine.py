@@ -10,15 +10,23 @@ confidence refresh, and the mono world-scale normalisation. Loop conditions
 are host values (window size, iteration counters, the pose-convergence
 scalar read once per iteration).
 
-Every flow-fed depth round takes the batched proposal path, scored and
-accepted by the hand-written CUDA cost kernel (``ops/cost.py``) when the
-cost mode is 'tracked' or 'anchored', and smooths its weights with the
-hand-written fb_smooth kernel (``ops/fb_smooth.py``); on CPU tensors the
-kernels' plain versions run.
+Every flow-fed depth round smooths its weights with the hand-written
+fb_smooth kernel (``ops/fb_smooth.py``). With the 'tracked' or 'anchored'
+cost it takes the batched proposal path, scored and accepted by the
+hand-written CUDA cost kernel (``ops/cost.py``); with the reference's
+'projected' cost it accepts one proposal map at a time, in torch ops. On
+CPU tensors the kernels' plain versions run.
+
+Besides the fused ``solve``, the engine keeps the JAX package's
+reference-structured host loop (``solve_stepwise`` over
+``optimize_cameras`` and ``_run_depth_round``), the legacy KITTI ground
+estimate (``kitti_estimate_ground``), the deprecated in-engine
+``resize_factor`` and ``save_result``.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from dataclasses import dataclass
 
@@ -31,6 +39,8 @@ from voldor_tpu_torch.ops.cost import cost_map_accept, cost_map_score
 from voldor_tpu_torch.ops.fb_smooth import fb_smooth
 from voldor_tpu_torch.vo import em
 from voldor_tpu_torch.vo.pose_step import _cameras_window_core, _cameras_window_jacobi_core
+
+_FLT_EPS = 1.1920929e-07
 
 
 def fb_smooth_masked(rigidness, active_n: int, fb_emm, fb_ncp):
@@ -57,10 +67,12 @@ def _depth_round_core(
 
     u: the (n_rand, h, w) proposal uniforms. Flow-fed tracked/anchored
     rounds score and accept proposals in batches through the cost kernel
-    (the initial cost in score mode, every batch in accept mode); prior-only
-    rounds accept one proposal map at a time (``em.optimize_depth``,
-    'jump'). Returns (depth, rigidness, dp_confs) or, when anchored,
-    (depth, rigidness, dp_confs, track, tinb).
+    (the initial cost in score mode, every batch in accept mode). Prior-only
+    rounds, and every round of the 'projected' cost (``em.compute_cost_map``,
+    not tracked), accept one proposal map at a time (``em.optimize_depth``
+    in ``mode``, 'jump' or 'exact'), as the JAX package's unbatched path
+    does. Returns (depth, rigidness, dp_confs) or, when anchored, (depth,
+    rigidness, dp_confs, track, tinb).
     """
     Rs = lie.so3_exp(poses6[:, :3])
     ts = poses6[:, 3:6]
@@ -73,12 +85,21 @@ def _depth_round_core(
         if use_priors:
             dp_confs = fb_smooth(dp_confs, fb_emm, fb_ncp)
 
-    if not rig_only:
-        if not tracked:
-            raise NotImplementedError(
-                "depth_cost_mode 'projected' (em.compute_cost_map) is not ported yet "
-                "(ROADMAP queue A)"
+    if not rig_only and not tracked:
+        # the reference's cost: every candidate re-traced through the window
+        f = flows if use_flows else None
+        pr = priors if use_priors else None
+
+        def cost_fn(d):
+            return em.compute_cost_map(
+                d, f, rigidness, Rs, ts, pr, dp_pconfs, dp_confs, dp_Rs, dp_ts, active_n, params
             )
+
+        depth, _ = em.optimize_depth(
+            depth, cost_fn(depth), cost_fn, u, global_prop_step=gstep,
+            local_prop_width=lwidth, range_factor=range_factor, local_prop_mode=mode,
+        )
+    elif not rig_only:
         track = tinb = None
         if use_flows:
             if obs_track is not None:
@@ -151,6 +172,35 @@ def _normalize_world_scale_pure(poses6, depth, active_n: int):
     scale = torch.where(active[:, None], s, 1.0)
     poses6 = torch.cat([poses6[:, :3], poses6[:, 3:6] * scale], dim=-1)
     return poses6, depth * s
+
+
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of ``jax.image.resize(..., "linear")``
+    along one axis: a triangle kernel, widened by the downscale factor
+    (antialiased), normalised per output sample."""
+    inv_scale = 1.0 / (n_out / n_in)
+    sample_f = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = torch.abs(sample_f[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None])
+    x = x / max(inv_scale, 1.0)
+    wts = torch.clamp_min(1.0 - x, 0.0)
+    total = wts.sum(dim=0, keepdim=True)
+    wts = torch.where(
+        torch.abs(total) > 1000.0 * _FLT_EPS, wts / torch.where(total != 0, total, 1.0), 0.0
+    )
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[None, :], wts, 0.0)
+
+
+def resize_linear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(h0, w0) or (n, h0, w0, c) float32 maps resized to (h, w) as
+    ``jax.image.resize(x, shape, "linear")`` resizes them (the JAX engine's
+    ``resize_factor``, ``engine.py:747-778``)."""
+    h0, w0 = x.shape[1:3] if x.dim() == 4 else x.shape
+    wy = _resize_weights(h0, h).to(x.device)
+    wx = _resize_weights(w0, w).to(x.device)
+    if x.dim() == 4:
+        return torch.einsum("nhwc,hH,wW->nHWc", x, wy, wx)
+    return torch.einsum("hw,hH,wW->HW", x, wy, wx)
 
 
 def _round_through(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -256,6 +306,7 @@ class VoldorEngine:
     iters_cur: int = 0
     iters_remain: int = 0
     bootstrap_route: str | None = None  # 'cv2' or 'epipolar' once bootstrapped
+    ground: tuple | None = None  # KittiGround, with kitti_estimate_ground
     gen: torch.Generator | None = None
 
     def __post_init__(self):
@@ -279,10 +330,24 @@ class VoldorEngine:
                 "--pose_window_sweep jacobi is an ablation/testing mode; use 'hybrid' or 'seq'.",
                 stacklevel=3,
             )
-        if cfg.resize_factor != 1.0:
-            raise NotImplementedError("resize_factor != 1 is not ported (resize is the SLAM layer's duty)")
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(cfg.seed))
+
+        rf = cfg.resize_factor
+        if rf != 1.0:
+            # deprecated upstream (the SLAM layer resizes): flows and the
+            # disparity are resized here, the intrinsics scaled
+            if isinstance(flows, (list, tuple)):
+                raise ValueError(
+                    "flow handle lists require resize_factor == 1 (resize is the SLAM layer's duty)"
+                )
+            flows = _to_tensor(flows, dev)
+            n, h0, w0, _ = flows.shape
+            flows = resize_linear(flows, int(h0 * rf), int(w0 * rf)) * rf
+            cfg.fx *= rf
+            cfg.fy *= rf
+            cfg.cx *= rf
+            cfg.cy *= rf
 
         compress = cfg.transfer_dtype == "float16"
         # an array, or per-transition entries mixing host numpy and tensors
@@ -309,7 +374,10 @@ class VoldorEngine:
         prior_list, pconf_list, pose_list = [], [], []
         self.has_disparity = disparity is not None
         if disparity is not None:
-            prior_list.append(cfg.basefocal / np.maximum(np.asarray(disparity, np.float32), 1e-12))
+            dp = cfg.basefocal / np.maximum(np.asarray(disparity, np.float32), 1e-12)
+            if rf != 1.0:
+                dp = resize_linear(_to_tensor(dp, dev), h, w) * rf
+            prior_list.append(dp)
             pconf_list.append(
                 np.ones((h, w), np.float32) if disparity_pconf is None
                 else disparity_pconf
@@ -332,7 +400,7 @@ class VoldorEngine:
             self.dp_poses6 = torch.as_tensor(np.stack(pose_list), device=dev)
             self.depth = self.priors[0].clone()
             if not self.has_disparity:
-                self._run_prior_only_round()  # fuse priors into the initial depth
+                self._run_depth_round(prior_only=True)  # fuse priors into the initial depth
         else:
             self.priors = torch.zeros((0, h, w), dtype=torch.float32, device=dev)
             self.dp_pconfs = torch.zeros((0, h, w), dtype=torch.float32, device=dev)
@@ -360,14 +428,23 @@ class VoldorEngine:
     def _uniforms(self):
         return em.draw_depth_uniforms(self.gen, self.cfg.depth_rand_samples, self.h, self.w, self.device)
 
-    def _run_prior_only_round(self):
-        """The prior-fusion round of init (``engine.py:852-854``)."""
+    def _run_depth_round(self, prior_only: bool = False, rigidness_only: bool = False):
+        """One standalone depth round (``engine.py:1057``): the prior-fusion
+        round of init, or a round of ``solve_stepwise``. Without carried
+        track planes or hoisted prior samples, it anchors and samples at
+        the round-start depth."""
         cfg = self.cfg
+        use_flows = self.n_flows > 0 and not prior_only
+        use_priors = self.n_depth_priors > 0
+        if not use_flows and not use_priors:
+            return
+        kw = self._depth_kw()
+        kw["rig_only"] = rigidness_only
         ret = _depth_round_core(
             self.depth, self.flows, self.rigidness, self.poses6, self.priors,
-            self.dp_pconfs, self.dp_confs, self.dp_poses6, 0, self._params(),
-            self._uniforms(), cfg.fb_emm, cfg.fb_no_change_prob, cfg.depth_range_factor,
-            use_flows=False, use_priors=True, **self._depth_kw(),
+            self.dp_pconfs, self.dp_confs, self.dp_poses6, self.n_flows if use_flows else 0,
+            self._params(), self._uniforms(), cfg.fb_emm, cfg.fb_no_change_prob,
+            cfg.depth_range_factor, use_flows=use_flows, use_priors=use_priors, **kw,
         )
         self.depth, self.rigidness, self.dp_confs = ret[:3]
 
@@ -542,15 +619,77 @@ class VoldorEngine:
 
     def finalize_host(self, extra_fetch=()):
         """Copy the end-of-solve scalars (and the caller's extras) to the
-        host. Returns the extras as numpy arrays, in order."""
-        if self.cfg.kitti_estimate_ground:
-            raise NotImplementedError("kitti_estimate_ground is not ported (ROADMAP queue A)")
+        host, then run the host epilogue (the KITTI ground estimate).
+        Returns the extras as numpy arrays, in order."""
+        cfg = self.cfg
         n_flows, iters_cur, rig_dens = self._st_scalars
         self.n_flows = int(n_flows)
         self.iters_cur = int(iters_cur)
         self.iters_remain = 0
         self.pose_rigidness_densities[: rig_dens.shape[0]] = rig_dens.cpu().numpy()
+        if cfg.kitti_estimate_ground:
+            # legacy capability (voldor.cpp:146-147, 320-331)
+            from voldor_tpu_torch.vo.kitti_ground import estimate_kitti_ground
+
+            K = np.asarray([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1]], np.float32)
+            self.ground = estimate_kitti_ground(
+                self.depth, K, roi_frac=cfg.kitti_ground_roi,
+                holo_width=cfg.kitti_ground_holo_width,
+                ms_kernel_var=cfg.kitti_ground_meanshift_kernel_var,
+            )
         return [x.cpu().numpy() for x in extra_fetch]
+
+    def solve_stepwise(self) -> int:
+        """The reference-structured host loop (``engine.py:981``): one call
+        per phase, a sequential camera sweep then a depth round per EM
+        iteration, with no extension or early stop. For debugging and
+        parity checks; ``solve`` is the fast path."""
+        cfg = self.cfg
+        if self.n_depth_priors == 0:
+            self.bootstrap()
+        while self.iters_remain > 0 and self.n_flows > 0:
+            self.iters_cur += 1
+            self.iters_remain -= 1
+            self.optimize_cameras()
+            self._run_depth_round(rigidness_only=not cfg.optimize_depth)
+            if cfg.norm_world_scale and self.n_depth_priors == 0:
+                self.poses6, self.depth = _normalize_world_scale_pure(
+                    self.poses6, self.depth, self.n_flows
+                )
+        return self.iters_cur
+
+    def optimize_cameras(self):
+        """One sequential camera sweep with the truncation policy
+        (``engine.py:999``, voldor.cpp:164-201)."""
+        cfg = self.cfg
+        allow_trunc = self.iters_cur > cfg.no_trunc_iters
+        rg_refine = bool(cfg.rg_refine) and (not cfg.rg_refine_last_only or self.iters_remain == 0)
+        res = _cameras_window_core(
+            self.depth, self.flows, self.rigidness, self.poses6, self.pose_covars,
+            self.pose_densities_dev, self.pose_sample_counts_dev, self.n_flows,
+            allow_trunc, rg_refine, self.gen, self._params(),
+            trunc_rigidness_density=cfg.trunc_rigidness_density,
+            trunc_sample_density=cfg.trunc_sample_density, **self._pose_hp(),
+        )
+        self.poses6, self.pose_covars = res.poses6, res.pose_covars
+        self.pose_densities_dev = res.pose_densities
+        self.pose_sample_counts_dev = res.pose_sample_counts
+        rig_dens = res.rigidness_densities.cpu().numpy()
+        self.pose_rigidness_densities[: rig_dens.shape[0]] = rig_dens
+        if res.truncated:
+            if not cfg.silent:
+                print(f"truncated at camera {res.n_flows_new}")
+            self.iters_remain = max(self.iters_remain, cfg.min_iters_after_trunc)
+            self.n_flows = res.n_flows_new
+
+    @property
+    def poses(self) -> np.ndarray:
+        """(N, 6) host copy of the window poses."""
+        return self.poses6.cpu().numpy()
+
+    @property
+    def pose_covars_host(self) -> np.ndarray:
+        return self.pose_covars.cpu().numpy()
 
     # ------------------------------------------------------------------
     def depth_confidence(self) -> np.ndarray:
@@ -558,3 +697,39 @@ class VoldorEngine:
         if self.n_flows + self.n_depth_priors == 0:
             return np.zeros((self.h, self.w), np.float32)
         return _depth_confidence(self.rigidness, self.dp_confs, self.n_flows).cpu().numpy()
+
+
+def save_result(engine: VoldorEngine, save_dir: str) -> None:
+    """The artifact dump of VOLDOR::save_result (``engine.py:1119``,
+    voldor.cpp:333-376): depth.npy and depth.png, one pose line per
+    registered camera in camera_pose.txt, the normalised rigidness sum; with
+    ``cfg.save_everything`` also each frame's rigidness map and flow
+    visualisation."""
+    os.makedirs(save_dir, exist_ok=True)
+    depth = engine.depth.cpu().numpy()
+    np.save(os.path.join(save_dir, "depth.npy"), depth)
+    try:
+        import cv2
+
+        cv2.imwrite(os.path.join(save_dir, "depth.png"), depth)
+    except ImportError:
+        pass
+
+    with open(os.path.join(save_dir, "camera_pose.txt"), "w") as f:
+        poses = engine.poses
+        for i in range(engine.n_flows):
+            f.write(" ".join(f"{v:f}" for v in poses[i]) + "\n")
+
+    rig = engine.rigidness.cpu().numpy()
+    rig_sum = rig[: engine.n_flows].sum(axis=0) / max(engine.n_flows, 1)
+    np.save(os.path.join(save_dir, "rigidness_sum.npy"), rig_sum)
+
+    if engine.cfg.save_everything:
+        from voldor_tpu_torch.utils.flow_io import vis_flow
+
+        flows = engine.flows.cpu().numpy()
+        for i in range(engine.n_flows_init):
+            np.save(os.path.join(save_dir, f"rigidness-{i}.npy"), rig[i])
+            np.save(os.path.join(save_dir, f"flow-viz-{i}.npy"), vis_flow(flows[i]))
+    if not engine.cfg.silent:
+        print(f"results saved to {save_dir}")

@@ -3,9 +3,13 @@ solve, meanshift mode fusion and the robust-Gaussian refit (port of
 ``voldor_tpu/vo/pose_step.py``).
 
 Ported: ``collect_p3p_instances`` :37 (traced collect; EM iteration 1 of
-the hybrid sweep), ``collect_p3p_instances_obs`` :290 (gather-free collect),
-``_pose_step_core`` :408, ``_cameras_window_core`` :639 (sequential sweep)
-and ``_cameras_window_jacobi_core`` :740 (batched sweep). The window sweep's
+the hybrid sweep), ``collect_p3p_instances_all`` :166 (the traced collect of
+every window frame in one pass, for the batched sweep),
+``collect_p3p_instances_obs`` :290 (gather-free collect), the minimal-solver
+registry ``_get_batch_p4p`` :398 (LambdaTwist or AP3P), ``_pose_step_core``
+:408 with its single-frame wrapper ``optimize_camera_pose`` :598,
+``_cameras_window_core`` :639 (sequential sweep) and
+``_cameras_window_jacobi_core`` :740 (batched sweep). The window sweep's
 ``lax.cond``/``fori_loop`` become host control flow; the multi-chip
 ``shard_hint`` calls are dropped. Random draws come from a
 ``torch.Generator`` through the ``draw_*`` helpers of each op.
@@ -17,10 +21,10 @@ from typing import NamedTuple
 
 import torch
 
-from voldor_tpu_torch.ops import lie
+from voldor_tpu_torch.ops import ap3p, lie, p3p
 from voldor_tpu_torch.ops.image import bilinear_sample
 from voldor_tpu_torch.ops.meanshift import draw_meanshift_trials, meanshift
-from voldor_tpu_torch.ops.p3p import draw_p4p_indices, solve_batch_p4p
+from voldor_tpu_torch.ops.p3p import draw_p4p_indices
 from voldor_tpu_torch.ops.robust_gaussian import fit_robust_gaussian
 from voldor_tpu_torch.vo.em import EmParams, _backproject, _pixel_grid, _transform
 
@@ -111,6 +115,83 @@ def collect_p3p_instances(
     return p2, p3, ok & finite
 
 
+def collect_p3p_instances_all(
+    depth, flows, rigidness, Rs, ts, active_n: int, p: EmParams, *,
+    rigidness_threshold, rigidness_sum_threshold, sample_min_depth,
+    sample_max_depth, max_trace_on_flow: int, sample_stride: int = 1,
+):
+    """(p2, p3, valid) of the traced collect for EVERY window frame in one
+    pass over the frames (``pose_step.py:166``): the 3D chain of target i is
+    the shared point chain at step i, and its flow trace is one of at most
+    ``max_trace_on_flow`` rolling trace buffers (a trace born at frame s
+    serves every target whose trace starts at s), advanced by one batched
+    flow gather per frame. Returns (p2 (N, hs, ws, 2), p3 (N, hs, ws, 3),
+    valid (N, hs, ws))."""
+    N, h, w = rigidness.shape
+    dev = depth.device
+    xs, ys = _pixel_grid(h, w, dev)
+    if sample_stride > 1:
+        s = sample_stride
+        xs, ys = xs[::s, ::s], ys[::s, ::s]
+        depth = depth[::s, ::s]
+        rigidness = rigidness[:, ::s, ::s]
+    hs, ws = xs.shape
+    M = max(int(max_trace_on_flow), 1) if max_trace_on_flow > 0 else N
+
+    ok0 = (depth >= sample_min_depth) & ((sample_max_depth <= 0) | (depth <= sample_max_depth))
+    rig_sum = rigidness.sum(dim=0)
+    ok0 = ok0 & ~((rig_sum < rigidness_sum_threshold) & (rigidness_sum_threshold > N + 1))
+
+    ox, oy, oz = _backproject(xs, ys, depth, p)
+    ages = torch.arange(M, device=dev)
+    tpx = torch.zeros((M, hs, ws), dtype=torch.float32, device=dev)
+    tpy = torch.zeros_like(tpx)
+    toob = torch.zeros((M, hs, ws), dtype=torch.bool, device=dev)
+    prods = torch.zeros_like(tpx)
+    no_oob = torch.zeros((1, hs, ws), dtype=torch.bool, device=dev)
+    outs = []
+    for i in range(N):
+        rig = rigidness[i]
+        active = i < active_n
+        # rigidness products over the last M frames ending at i
+        prods = torch.cat([rig[None], prods[:-1] * rig[None]], dim=0)
+        # a new trace is born at the projection of the chain point
+        safe_oz = torch.where(torch.abs(oz) < 1e-12, 1e-12, oz)
+        prj_x = (p.fx * ox + p.cx * safe_oz) / safe_oz
+        prj_y = (p.fy * oy + p.cy * safe_oz) / safe_oz
+        tpx = torch.cat([prj_x[None], tpx[:-1]], dim=0)
+        tpy = torch.cat([prj_y[None], tpy[:-1]], dim=0)
+        toob = torch.cat([no_oob, toob[:-1]], dim=0)
+        # every live trace advances along the observed flow
+        inb = (tpx > 0) & (tpx < w) & (tpy > 0) & (tpy < h)
+        toob = toob | ~inb
+        if active:
+            obs = bilinear_sample(flows[i], tpx, tpy)
+            tpx = torch.where(inb, tpx + obs[..., 0], tpx)
+            tpy = torch.where(inb, tpy + obs[..., 1], tpy)
+        # target i takes the trace buffer of age n_trace - 1
+        alive = (prods > rigidness_threshold) & (ages <= i)[:, None, None]
+        n_trace = torch.cumprod(alive.to(torch.int32), dim=0).sum(dim=0)
+        sel = torch.clamp(n_trace - 1, 0, M - 1)
+        onehot = ages[:, None, None] == sel[None]
+        p2x = torch.where(onehot, tpx, 0.0).sum(dim=0)
+        p2y = torch.where(onehot, tpy, 0.0).sum(dim=0)
+        oob = (onehot & toob).any(dim=0)
+        finite = (
+            torch.isfinite(p2x) & torch.isfinite(p2y)
+            & torch.isfinite(ox) & torch.isfinite(oy) & torch.isfinite(oz)
+        )
+        valid = (
+            ok0 & active & (n_trace > 0) & ~oob & finite
+            & (oz > sample_min_depth)
+            & ((sample_max_depth <= 0) | (oz < sample_max_depth))
+        )
+        outs.append((p2x, p2y, ox, oy, oz, valid))
+        ox, oy, oz = _transform(Rs[i], ts[i], ox, oy, oz)
+    p2x, p2y, p3x, p3y, p3z, valid = (torch.stack(c) for c in zip(*outs))
+    return torch.stack([p2x, p2y], dim=-1), torch.stack([p3x, p3y, p3z], dim=-1), valid
+
+
 def collect_p3p_instances_obs(
     depth, obs_track, obs_tinb, rigidness, Rs, ts, active_n: int, p: EmParams, *,
     rigidness_threshold, rigidness_sum_threshold, sample_min_depth,
@@ -176,6 +257,16 @@ def _collect_kw(hp):
     )
 
 
+def _get_batch_p4p(minimal_solver: str):
+    """Minimal-solver registry (``pose_step.py:398``; --lambdatwist 1/0,
+    geometry.cpp:149-153). Both solvers take the same 4-subset indices."""
+    if minimal_solver == "lambdatwist":
+        return p3p.solve_batch_p4p
+    if minimal_solver == "ap3p":
+        return ap3p.solve_batch_p4p_ap3p
+    raise ValueError(f"unknown minimal_solver {minimal_solver!r}")
+
+
 def _solve_and_fuse(p2s, p3s, valid, ms_init, successive, rg_refine: bool, gen, p: EmParams, hp):
     """P4P pool -> meanshift -> optional robust-Gaussian refit, batched over
     the leading dim B. p2s (B, M, 2), p3s (B, M, 3), valid (B, M), ms_init
@@ -183,13 +274,10 @@ def _solve_and_fuse(p2s, p3s, valid, ms_init, successive, rg_refine: bool, gen, 
 
     Returns (pose6 (B, 6), covar (B, 6, 6), density (B,), sample_count
     (B,), n_points (B,), success (B,))."""
-    if hp.get("minimal_solver", "lambdatwist") != "lambdatwist":
-        raise NotImplementedError(
-            "minimal_solver 'ap3p' (--lambdatwist 0) is not ported yet (ROADMAP queue A)"
-        )
+    batch_p4p = _get_batch_p4p(hp.get("minimal_solver", "lambdatwist"))
     n_points = valid.sum(dim=-1).to(torch.int32)
     idx = draw_p4p_indices(gen, valid, hp["n_poses_to_sample"])
-    rvecs, tvecs, ok = solve_batch_p4p(p2s, p3s, valid, idx, p.fx, p.fy, p.cx, p.cy)
+    rvecs, tvecs, ok = batch_p4p(p2s, p3s, valid, idx, p.fx, p.fy, p.cx, p.cy)
     rs = hp["meanshift_rvec_scale"]
     pool = torch.cat([rvecs * rs, tvecs], dim=-1)
     pool_valid = ok.to(torch.float32)
@@ -260,6 +348,21 @@ def _pose_step_core(
     )
 
 
+def optimize_camera_pose(
+    depth, flows, rigidness, poses6, pose_covars, active_idx: int, successive_pose,
+    rg_refine: bool, seed: int, p: EmParams, **hp,
+) -> PoseStepResult:
+    """Single-frame wrapper over ``_pose_step_core`` (``pose_step.py:598``)
+    with its own generator seeded from ``seed``, for tests and fine-grained
+    callers; the engine runs whole window sweeps."""
+    gen = torch.Generator(device=depth.device)
+    gen.manual_seed(int(seed))
+    return _pose_step_core(
+        depth, flows, rigidness, poses6, pose_covars, active_idx,
+        torch.as_tensor(successive_pose, device=depth.device), rg_refine, gen, p, **hp,
+    )
+
+
 def _cameras_window_core(
     depth, flows, rigidness, poses6, pose_covars, pose_densities, pose_sample_counts,
     n_flows: int, allow_trunc: bool, rg_refine: bool, gen: torch.Generator, p: EmParams,
@@ -312,14 +415,14 @@ def _cameras_window_jacobi_core(
     rig_dens = rigidness.reshape(N, -1).mean(dim=1)
     Rs = lie.so3_exp(poses6[:, :3])
     ts = poses6[:, 3:6]
-    if not (collect_mode == "obs" and obs_track is not None):
-        raise NotImplementedError(
-            "the batched sweep's 'traced' collect (collect_p3p_instances_all) is not "
-            "ported yet (ROADMAP queue A); use --pose_collect_mode obs"
+    if collect_mode == "obs" and obs_track is not None:
+        p2, p3, valid = collect_p3p_instances_obs(
+            depth, obs_track, obs_tinb, rigidness, Rs, ts, n_flows, p, **_collect_kw(hp)
         )
-    p2, p3, valid = collect_p3p_instances_obs(
-        depth, obs_track, obs_tinb, rigidness, Rs, ts, n_flows, p, **_collect_kw(hp)
-    )
+    else:
+        p2, p3, valid = collect_p3p_instances_all(
+            depth, flows, rigidness, Rs, ts, n_flows, p, **_collect_kw(hp)
+        )
     pose6_new, covar, density, count, _, success = _solve_and_fuse(
         p2.reshape(N, -1, 2), p3.reshape(N, -1, 3), valid.reshape(N, -1),
         poses6, pose_sample_counts != 0, rg_refine, gen, p, hp,
