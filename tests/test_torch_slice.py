@@ -181,7 +181,10 @@ def test_port_imports_no_jax():
         "voldor_tpu_torch.slam.loop_closure, voldor_tpu_torch.slam.checkpoint, "
         "voldor_tpu_torch.slam.viewer, voldor_tpu_torch.slam.huber, voldor_tpu_torch.demo, "
         "voldor_tpu_torch.ops.ap3p, voldor_tpu_torch.vo.kitti_ground, "
-        "voldor_tpu_torch.utils.debug_viz; "
+        "voldor_tpu_torch.utils.debug_viz, voldor_tpu_torch.parallel.hints, "
+        "voldor_tpu_torch.parallel.mesh, voldor_tpu_torch.native.io, "
+        "voldor_tpu_torch.slam.gl_viewer, voldor_tpu_torch.utils.profiling, "
+        "voldor_tpu_torch.utils.artifacts; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'voldor_tpu' or m.startswith('voldor_tpu.')]; "
         "assert not bad, bad; print('clean')"

@@ -13,6 +13,9 @@
 //   the lowest k, a NaN among the kept costs wins), and where that cost is
 //   below the pixel's current cost writes the candidate's depth and cost
 //   over the current ones, in place. Nothing else is written.
+// The planes may be a band of the image's rows, y0 the image row of their
+// first row (the multi-card solve launches one per band,
+// parallel/mesh.py); the whole image is the band at y0 = 0.
 //
 // What bounds it on the card: the arithmetic. Per pixel the accept reads
 // K candidates, depth and cost, 6 planes per active window frame (track
@@ -55,6 +58,7 @@ struct CostParams {
   int n_priors;  // D
   int k;         // candidates
   int h, w;
+  int y0;        // image row of the planes' first row (a row band's offset)
 };
 
 namespace {
@@ -137,7 +141,7 @@ cost_kernel(const CostInputs in, const CostParams prm) {
 
   // backprojection of every candidate (em._backproject)
   const float bx = ((float)x - prm.cx) / prm.fx;
-  const float by = ((float)y - prm.cy) / prm.fy;
+  const float by = ((float)(y + prm.y0) - prm.cy) / prm.fy;
   float d[KT], ox[KT], oy[KT], oz[KT], cost[KT], wsum[KT];
 #pragma unroll
   for (int k = 0; k < KT; ++k) {
@@ -280,7 +284,7 @@ extern "C" int cost_kernel_launch(int mode, const float* poses, const float* can
                                   float* out, const CostParams* prm, void* stream) {
   if (mode < 0 || mode > 1 || prm->k < 1 || prm->k > COST_MAX_K ||
       prm->n_frames < 1 || prm->n_frames > COST_MAX_N || prm->n_priors < 0 ||
-      prm->n_priors > COST_MAX_D || prm->h < 1 || prm->w < 1 ||
+      prm->n_priors > COST_MAX_D || prm->h < 1 || prm->w < 1 || prm->y0 < 0 ||
       (long long)prm->h * prm->w * COST_MAX_K > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }

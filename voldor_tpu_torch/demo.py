@@ -9,9 +9,10 @@ Loader threads feed flows (``.flo``), images and disparities; the VO thread
 and, with ``--enable_mapping``, the mapping thread run to the end of the
 sequence; the epilogue writes the poses, depth maps, point cloud and map
 checkpoint asked for. It runs on the CUDA device (``--device cpu`` for a
-CPU run). ``--viewer`` runs the headless viewer (the JAX package's OpenGL
-window needs a display and PyOpenGL); ``--debug_dir`` writes every window's
-depth, confidence and rigidness maps (``utils/debug_viz.py``).
+CPU run). ``--viewer`` opens the GL map window (``slam/gl_viewer.py``) where
+a display and PyOpenGL exist, and otherwise runs headless, as without it;
+``--debug_dir`` writes every window's depth, confidence and rigidness maps
+(``utils/debug_viz.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ def parse_args(argv=None):
     parser.add_argument("--save_map", type=str, help="write a resumable map checkpoint at the end")
     parser.add_argument("--load_map", type=str, help="resume from a map checkpoint")
     parser.add_argument("--viewer", action="store_true",
-                        help="the interactive GL map window (not ported: headless)")
+                        help="the interactive GL map window (needs a display and PyOpenGL; "
+                             "headless otherwise)")
     parser.add_argument("--metrics", type=str,
                         help="write per-window/link/PGO JSON-line metrics to this file")
     parser.add_argument("--debug_dir", type=str,
@@ -109,10 +111,18 @@ def main(argv=None):
                          daemon=True).start()
         slam.disp_loader_sync(0, block_when_uninit=True)
 
-    if opt.viewer:
+    # the live GL window when asked for and a display exists; the headless
+    # watch loop otherwise (the same data path, slam/gl_viewer.py)
+    from voldor_tpu_torch.slam.gl_viewer import GLViewer
+
+    gl = None
+    if opt.viewer and GLViewer.available():
+        gl = GLViewer(slam)
+    elif opt.viewer:
         print("Note: --viewer requested but no DISPLAY/PyOpenGL; headless.")
     viewer = VOLDOR_Viewer(slam)
-    threading.Thread(target=viewer.start, daemon=True).start()
+    if gl is None:
+        threading.Thread(target=viewer.start, daemon=True).start()
 
     errors = []
 
@@ -133,12 +143,25 @@ def main(argv=None):
         threads.append(threading.Thread(target=guarded(slam.mapping_thread)))
     for t in threads:
         t.start()
+    done = [False]
+
+    def run_epilogue():
+        # once: on the normal path, or from the GL window's 'q' handler,
+        # which classic GLUT cannot return from
+        if not done[0]:
+            done[0] = True
+            epilogue(slam, viewer, opt)
+
+    if gl is not None:
+        gl.on_exit = run_epilogue
+        # with freeglut the loop returns on 'q' or when the threads are done
+        gl.start(done=lambda: not any(t.is_alive() for t in threads))
     for t in threads:
         t.join()
     if errors:
         raise SystemExit(f"the SLAM threads failed: {errors!r}")
 
-    epilogue(slam, viewer, opt)
+    run_epilogue()
     slam.metrics.close()
     return slam
 

@@ -12,6 +12,13 @@ frame). The JAX ``while_loop``s become:
   state), with the "all finished" test read on the host every few steps.
 
 The init-trial draws are split out (``draw_meanshift_trials``).
+
+Under an active mesh with a ``hyp`` axis (``parallel/hints.py``) the pool
+is cut into one slice per device along that axis: each device reduces the
+kernel weights of its slice, and the partial sums are added on the pool's
+device (the JAX package's shard_hint makes XLA insert the same psums,
+``vo/pose_step.py:490-495``). The trials are drawn once, from the whole
+pool, as without a mesh.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from voldor_tpu_torch.parallel import hints
 
 _SYNC_EVERY = 8  # iterations between host checks of "all converged"
 
@@ -64,13 +73,25 @@ def meanshift(
     sample indices (``draw_meanshift_trials``).
     """
     valid = valid.to(space.dtype)
-    n_valid = torch.clamp_min(valid.sum(dim=-1), 1.0)
     space_t = torch.where(valid[..., None, :] > 0, space.transpose(-1, -2), 0.0)  # (..., D, P)
+    dev = space.device
+    # the pool's shards: the whole pool, or one slice per device of the
+    # active mesh's hyp axis, whose partial sums are added on `dev`
+    hyp = hints.axis_devices("hyp")
+    if hyp is None:
+        shards = [(space_t, valid)]
+    else:
+        shards = list(zip(hints.split(space_t, hyp, -1), hints.split(valid, hyp, -1)))
+
+    def pool_sum(fn):
+        return hints.sum_partials([fn(st, v) for st, v in shards], dev)
+
+    n_valid = torch.clamp_min(pool_sum(lambda st, v: v.sum(dim=-1)), 1.0)
 
     # init trials: score every candidate, then replay the early stop
     T = trial_idx.shape[-1]
     cands = torch.take_along_dim(space_t, trial_idx[..., None, :], dim=-1)  # (..., D, T)
-    confs = _weights(space_t, valid, cands, kernel_var).sum(dim=-1)  # (..., T)
+    confs = pool_sum(lambda st, v: _weights(st, v, cands.to(st.device), kernel_var).sum(dim=-1))
     best_so_far = torch.cummax(confs, dim=-1).values
     over = best_so_far > good_init_confidence * n_valid[..., None]
     # trial t runs iff no earlier trial already pushed the best over the bar
@@ -78,18 +99,21 @@ def meanshift(
     ran = torch.cumprod(ran.to(torch.int32), dim=-1) > 0
     pick = torch.argmax(torch.where(ran, confs, -torch.inf), dim=-1)  # first max
     trial_mean = torch.take_along_dim(cands, pick[..., None, None], dim=-1)[..., 0]
-    mean =torch.where(use_external_init_mean[..., None], init_mean.to(space.dtype), trial_mean)
+    mean = torch.where(use_external_init_mean[..., None], init_mean.to(space.dtype), trial_mean)
 
-    it = torch.zeros(space.shape[:-2], dtype=torch.int32, device=space.device)
-    conf = torch.zeros(space.shape[:-2], dtype=space.dtype, device=space.device)
-    disp = torch.full(space.shape[:-2], torch.inf, dtype=space.dtype, device=space.device)
+    it = torch.zeros(space.shape[:-2], dtype=torch.int32, device=dev)
+    conf = torch.zeros(space.shape[:-2], dtype=space.dtype, device=dev)
+    disp = torch.full(space.shape[:-2], torch.inf, dtype=space.dtype, device=dev)
     for step in range(max_iters):
         if step % _SYNC_EVERY == 0 and not bool(((it < max_iters) & (disp >= epsilon)).any()):
             break
         active = (it < max_iters) & (disp >= epsilon)
-        w = _weights(space_t, valid, mean[..., None], kernel_var)[..., 0, :]  # (..., P)
-        wsum = torch.clamp_min(w.sum(dim=-1), 1e-30)
-        new_mean = (space_t @ w[..., None])[..., 0] / wsum[..., None]
+        ws = [_weights(st, v, mean.to(st.device)[..., None], kernel_var)[..., 0, :]
+              for st, v in shards]  # (..., P) per shard
+        wsum = torch.clamp_min(hints.sum_partials([w.sum(dim=-1) for w in ws], dev), 1e-30)
+        new_mean = hints.sum_partials(
+            [(st @ w[..., None])[..., 0] for (st, _), w in zip(shards, ws)], dev
+        ) / wsum[..., None]
         new_disp = torch.linalg.norm(mean - new_mean, dim=-1)
         it = torch.where(active, it + 1, it)
         mean = torch.where(active[..., None], new_mean, mean)

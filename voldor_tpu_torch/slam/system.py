@@ -14,10 +14,10 @@ the priority-matrix ``mapping_thread`` and ``solve_pgo`` over ``pgo``.
 Loop closure, the image loader and the PNG disparity loader need cv2; they
 raise ``RuntimeError`` without it. With ``debug_dir`` set, every window's
 depth, confidence and rigidness maps are written there
-(``utils/debug_viz.py``). The flow loader reads .flo files with
-``utils/flow_io.load_flow``, in place of the JAX package's native C++
-prefetcher; the JAX package's TPU compile warm-up thread has no
-counterpart.
+(``utils/debug_viz.py``). The flow loader, and the disparity loader on a
+.flo directory, read through the native C++ prefetcher
+(``native/io.py``), or the Python .flo reader where it cannot be built;
+the JAX package's TPU compile warm-up thread has no counterpart.
 """
 
 from __future__ import annotations
@@ -239,28 +239,30 @@ class VOLDOR_SLAM:
         """Feeds self.flows with bounded read-ahead (system.py:261-285): the
         directory's .flo files in sorted order (``range`` slices them),
         resized by ``resize`` with the flow vectors scaled alike. Sets
-        N_FRAMES, h and w from the first file."""
-        files = sorted(f for f in os.listdir(flow_path) if f.endswith(".flo"))
-        if range != (0, 0):
-            files = files[range[0]:range[1]]
-        if not files:
-            raise RuntimeError(f"no .flo files in {flow_path}")
-        paths = [os.path.join(flow_path, f) for f in files]
-        flow = load_flow(paths[0])
-        self.N_FRAMES = len(paths) + 1
-        self.h = int(flow.shape[0] * resize)
-        self.w = int(flow.shape[1] * resize)
+        N_FRAMES, h and w from the first file. The files are read by the
+        native C++ prefetcher (``native/io.py``) when it builds, else by the
+        Python .flo reader."""
+        from voldor_tpu_torch.native.io import NativeFlowDir
+
+        src = NativeFlowDir(flow_path, range=range)
         self.flow_loader_pt = 0
-        print(f"{len(paths)} flows loaded")
-        for i, path in enumerate(paths):
-            while len(self.flows) - self.fid_cur > n_cache:
-                time.sleep(0.01)
-            if i:
-                flow = load_flow(path)
-            if flow.shape[0] != self.h or flow.shape[1] != self.w:
-                flow = self._resize_flow(flow, self.w, self.h)
-            self.flows.append(flow)
-            self.flow_loader_pt += 1
+        print(f"{len(src)} flows loaded" + (" (native IO)" if src.native else ""))
+        self.N_FRAMES = len(src) + 1
+        self.h = int(src.h * resize)
+        self.w = int(src.w * resize)
+        i = 0  # (`range` shadows the builtin: the upstream API's name)
+        try:
+            while i < len(src):
+                while len(self.flows) - self.fid_cur > n_cache:
+                    time.sleep(0.01)
+                flow = src.get(i)
+                i += 1
+                if flow.shape[0] != self.h or flow.shape[1] != self.w:
+                    flow = self._resize_flow(flow, self.w, self.h)
+                self.flows.append(flow)
+                self.flow_loader_pt += 1
+        finally:
+            src.close()
 
     @staticmethod
     def _resize_flow(flow, w, h):
@@ -304,22 +306,35 @@ class VOLDOR_SLAM:
         if range != (0, 0):
             disp_fn_list = disp_fn_list[range[0]:range[1]]
         print(f"{len(disp_fn_list)} disparities loaded")
-        for fn in disp_fn_list:
-            while len(self.disps) - self.fid_cur > n_cache or self.flow_loader_pt <= 0:
-                time.sleep(0.01)
-            if fn.endswith(".flo"):
-                disp = np.ascontiguousarray(-load_flow(os.path.join(disp_path, fn))[..., 0])
-            elif fn.endswith(".png"):
-                cv2 = _cv2("the PNG disparity loader")
-                disp = cv2.imread(os.path.join(disp_path, fn), cv2.IMREAD_UNCHANGED)
-                disp = disp.astype(np.float32) / 256.0
-            else:
-                raise ValueError(f"Unsupported disparity format {fn}")
-            if disp.shape[0] != self.h or disp.shape[1] != self.w:
-                disp = _cv2("resizing disparities").resize(disp, (self.w, self.h)) * (
-                    self.w / disp.shape[1])
-            self.disps.append(disp)
-            self.disp_loader_pt += 1
+        # .flo disparities (KITTI stereo: the negated x-flow) are a second
+        # flow directory: the native prefetcher reads them too
+        src = None
+        if disp_fn_list and all(f.endswith(".flo") for f in disp_fn_list):
+            from voldor_tpu_torch.native.io import NativeFlowDir
+
+            src = NativeFlowDir(disp_path, range=range)
+        try:
+            for i, fn in enumerate(disp_fn_list):
+                while len(self.disps) - self.fid_cur > n_cache or self.flow_loader_pt <= 0:
+                    time.sleep(0.01)
+                if src is not None:
+                    disp = np.ascontiguousarray(-src.get(i)[..., 0])
+                elif fn.endswith(".flo"):
+                    disp = np.ascontiguousarray(-load_flow(os.path.join(disp_path, fn))[..., 0])
+                elif fn.endswith(".png"):
+                    cv2 = _cv2("the PNG disparity loader")
+                    disp = cv2.imread(os.path.join(disp_path, fn), cv2.IMREAD_UNCHANGED)
+                    disp = disp.astype(np.float32) / 256.0
+                else:
+                    raise ValueError(f"Unsupported disparity format {fn}")
+                if disp.shape[0] != self.h or disp.shape[1] != self.w:
+                    disp = _cv2("resizing disparities").resize(disp, (self.w, self.h)) * (
+                        self.w / disp.shape[1])
+                self.disps.append(disp)
+                self.disp_loader_pt += 1
+        finally:
+            if src is not None:
+                src.close()
 
     # ------------------------------------------------------------------
     def save_poses(self, file_path="./output_pose.txt", format="KITTI"):

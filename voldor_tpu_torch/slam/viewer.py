@@ -4,8 +4,8 @@
 The reference viewer (slam_py/voldor_viewer.py:20-333) is a GLUT app; this
 module provides the same map-inspection capabilities headlessly — the cached
 point-cloud rebuild on map changes (draw_structures semantics,
-voldor_viewer.py:100-159) and PLY export (voldor_viewer.py:294-314). The JAX
-package's OpenGL window (``slam/gl_viewer.py``) is not ported.
+voldor_viewer.py:100-159) and PLY export (voldor_viewer.py:294-314). The
+live OpenGL window (``slam/gl_viewer.py``) draws from it.
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ fb_smooth kernel (``ops/fb_smooth.py``). With the 'tracked' or 'anchored'
 cost it takes the batched proposal path, scored and accepted by the
 hand-written CUDA cost kernel (``ops/cost.py``); with the reference's
 'projected' cost it accepts one proposal map at a time, in torch ops. On
-CPU tensors the kernels' plain versions run.
+CPU tensors the kernels' plain versions run. Under an active mesh with an
+``sp`` axis (``parallel/mesh.py``) both kernels launch once per row band
+on the band's device; without one nothing changes.
 
 Besides the fused ``solve``, the engine keeps the JAX package's
 reference-structured host loop (``solve_stepwise`` over
@@ -35,12 +37,23 @@ import torch
 
 from voldor_tpu_torch.config import VoldorConfig
 from voldor_tpu_torch.ops import epipolar, lie
-from voldor_tpu_torch.ops.cost import cost_map_accept, cost_map_score
-from voldor_tpu_torch.ops.fb_smooth import fb_smooth
+from voldor_tpu_torch.ops.cost import (
+    cost_map_accept, cost_map_accept_bands, cost_map_score, cost_map_score_bands, split_bands,
+)
+from voldor_tpu_torch.ops.fb_smooth import fb_smooth, fb_smooth_bands
+from voldor_tpu_torch.parallel import hints
 from voldor_tpu_torch.vo import em
 from voldor_tpu_torch.vo.pose_step import _cameras_window_core, _cameras_window_jacobi_core
 
 _FLT_EPS = 1.1920929e-07
+
+
+def _smooth(prob, fb_emm, fb_ncp, out=None):
+    """fb_smooth, or over the row bands of the active mesh's sp axis."""
+    sp = hints.axis_devices("sp")
+    if sp is None:
+        return fb_smooth(prob, fb_emm, fb_ncp, out=out)
+    return fb_smooth_bands(prob, fb_emm, fb_ncp, sp, out=out)
 
 
 def fb_smooth_masked(rigidness, active_n: int, fb_emm, fb_ncp):
@@ -51,7 +64,7 @@ def fb_smooth_masked(rigidness, active_n: int, fb_emm, fb_ncp):
         return rigidness.clone()
     out = torch.empty_like(rigidness)
     out[active_n:] = rigidness[active_n:]
-    fb_smooth(rigidness[:active_n], fb_emm, fb_ncp, out=out[:active_n])
+    _smooth(rigidness[:active_n], fb_emm, fb_ncp, out=out[:active_n])
     return out
 
 
@@ -83,7 +96,7 @@ def _depth_round_core(
         if use_flows:
             rigidness = fb_smooth_masked(rigidness, active_n, fb_emm, fb_ncp)
         if use_priors:
-            dp_confs = fb_smooth(dp_confs, fb_emm, fb_ncp)
+            dp_confs = _smooth(dp_confs, fb_emm, fb_ncp)
 
     if not rig_only and not tracked:
         # the reference's cost: every candidate re-traced through the window
@@ -116,12 +129,17 @@ def _depth_round_core(
             )
 
         if use_flows:
-            planes = (track, tinb, rigidness, Rs, ts, active_n, params)
+            # scored and accepted per row band of the active mesh's sp axis
+            # (one band without one), the bands' planes cut once per round
+            sp = hints.axis_devices("sp") or [rigidness.device]
+            bands = split_bands(sp, track, tinb, rigidness, Rs, ts, pr_samples)
 
             def accept_fn(depth, cost, cands, masks):
-                return cost_map_accept(depth, cost, cands, masks, *planes, prior_samples=pr_samples)
+                return cost_map_accept_bands(depth, cost, cands, masks, bands, active_n, params,
+                                             accept=cost_map_accept)
 
-            cost = cost_map_score(depth[None], *planes, prior_samples=pr_samples)[0]
+            cost = cost_map_score_bands(depth[None], bands, active_n, params,
+                                        score=cost_map_score)[0]
             depth, cost = em.optimize_depth_batched(
                 depth, cost, accept_fn, u, global_prop_step=gstep,
                 local_prop_width=lwidth, range_factor=range_factor,
@@ -279,6 +297,156 @@ def _stack_flows(lst, compress: bool, device) -> torch.Tensor:
     return torch.stack(outs)
 
 
+def pose_hp(cfg: VoldorConfig) -> dict:
+    """The pose step's hyperparameters from a config (``engine.py:394-414``)."""
+    return dict(
+        rigidness_threshold=cfg.rigidness_threshold,
+        rigidness_sum_threshold=cfg.rigidness_sum_threshold,
+        sample_min_depth=cfg.pose_sample_min_depth,
+        sample_max_depth=cfg.pose_sample_max_depth,
+        max_trace_on_flow=cfg.max_trace_on_flow,
+        pose_sample_stride=cfg.pose_sample_stride,
+        n_poses_to_sample=cfg.n_poses_to_sample,
+        meanshift_kernel_var=cfg.meanshift_kernel_var,
+        meanshift_rvec_scale=cfg.meanshift_rvec_scale,
+        meanshift_epsilon=cfg.meanshift_epsilon,
+        meanshift_max_iters=cfg.meanshift_max_iters,
+        meanshift_max_init_trials=cfg.meanshift_max_init_trials,
+        meanshift_good_init_confidence=cfg.meanshift_good_init_confidence,
+        rg_trunc_sigma=cfg.rg_trunc_sigma,
+        rg_covar_reg_lambda=cfg.rg_covar_reg_lambda,
+        rg_pose_scaling=cfg.rg_pose_scaling,
+        rg_epsilon=cfg.rg_epsilon,
+        rg_max_iters=cfg.rg_max_iters,
+        minimal_solver="lambdatwist" if cfg.lambdatwist else "ap3p",
+    )
+
+
+def depth_kw(cfg: VoldorConfig) -> dict:
+    """The depth rounds' switches from a config (``engine.py:415-427``)."""
+    return dict(
+        gstep=cfg.depth_global_prop_step,
+        lwidth=cfg.depth_local_prop_width,
+        mode=cfg.depth_local_prop_mode,
+        fb=bool(cfg.fb_smooth),
+        rig_only=not cfg.optimize_depth,
+        tracked=cfg.depth_cost_mode in ("tracked", "anchored"),
+        anchored=cfg.depth_cost_mode == "anchored",
+    )
+
+
+def _solve_loop(
+    cfg: VoldorConfig, params: em.EmParams, hp: dict, dkw: dict, gen: torch.Generator,
+    depth, flows, rigidness, priors, dp_pconfs, dp_confs, dp_poses6, poses6, covars,
+    densities, counts, n_flows0: int,
+) -> dict:
+    """The EM solve loop from a loaded window (``_get_solve_fn``'s
+    while_loop, ``engine.py:429-656``): camera sweeps with truncation, depth
+    rounds, the mono gauge fix. ``hp``: the pose step's hyperparameters
+    (``pose_hp``); ``dkw``: the depth rounds' switches (``depth_kw``). Every draw comes from ``gen``, in the
+    order of the loop. Returns the JAX solve's state dict: depth,
+    rigidness, dp_confs, poses6, covars, densities, counts, n_flows,
+    iters_cur, iters_remain, rig_dens (and pose_delta, track, tinb where
+    the JAX loop carries them)."""
+    use_priors = priors.shape[0] > 0
+    anchored = dkw["anchored"]
+    N, h, w = flows.shape[:3]
+
+    obs_track = obs_tinb = None
+    if (dkw["tracked"] and not dkw["rig_only"]) or anchored or cfg.pose_collect_mode == "obs":
+        obs_track, obs_tinb = em.precompute_obs_tracks(flows, n_flows0, params)
+
+    freeze = use_priors and cfg.prior_sample_mode == "solve" and dkw["tracked"] and not dkw["rig_only"]
+    pr_hoisted = None
+    if freeze:
+        dp_Rs0 = lie.so3_exp(dp_poses6[:, :3])
+        dp_ts0 = dp_poses6[:, 3:6]
+        pr_hoisted = em.precompute_prior_samples(
+            depth, priors, dp_pconfs, dp_confs, dp_Rs0, dp_ts0, params
+        )
+
+    extend = cfg.max_iters_ext > cfg.max_iters
+    early_stop = cfg.early_stop_min_iters > 0
+    track_delta = extend or early_stop
+
+    n_flows, iters_cur, iters_remain = n_flows0, 0, cfg.max_iters
+    pose_delta = float("inf")
+    track, tinb = obs_track, obs_tinb  # round 1 scores against frame-0 tracks
+    rig_dens = torch.zeros(N, dtype=torch.float32, device=depth.device)
+
+    while True:
+        keep = iters_remain > 0
+        if extend:
+            keep = keep or (iters_cur < cfg.max_iters_ext and pose_delta > cfg.pose_converge_eps)
+        if not (keep and n_flows > 0):
+            break
+        iters_cur += 1
+        iters_remain -= 1
+        allow_trunc = iters_cur > cfg.no_trunc_iters
+        rg_ref = bool(cfg.rg_refine) and ((not cfg.rg_refine_last_only) or iters_remain == 0)
+        cur_track = track if anchored else obs_track
+        cur_tinb = tinb if anchored else obs_tinb
+        sweep_args = (
+            depth, flows, rigidness, poses6, covars, densities, counts, n_flows,
+            allow_trunc, rg_ref, gen, params,
+        )
+        sweep_kw = dict(
+            trunc_rigidness_density=cfg.trunc_rigidness_density,
+            trunc_sample_density=cfg.trunc_sample_density, **hp,
+        )
+        jac_kw = dict(collect_mode=cfg.pose_collect_mode, obs_track=cur_track, obs_tinb=cur_tinb, **sweep_kw)
+        if cfg.pose_window_sweep == "seq" or (cfg.pose_window_sweep == "hybrid" and iters_cur == 1):
+            cam = _cameras_window_core(*sweep_args, **sweep_kw)
+        elif cfg.pose_window_sweep in ("jacobi", "hybrid"):
+            cam = _cameras_window_jacobi_core(*sweep_args, **jac_kw)
+        else:
+            raise ValueError(f"unknown pose_window_sweep {cfg.pose_window_sweep!r}")
+        n_flows = cam.n_flows_new
+        if cam.truncated:
+            iters_remain = max(iters_remain, cfg.min_iters_after_trunc)
+        u = em.draw_depth_uniforms(gen, cfg.depth_rand_samples, h, w, depth.device)
+        dr = _depth_round_core(
+            depth, flows, rigidness, cam.poses6, priors, dp_pconfs, dp_confs,
+            dp_poses6, n_flows, params, u, cfg.fb_emm,
+            cfg.fb_no_change_prob, cfg.depth_range_factor,
+            use_flows=True, use_priors=use_priors, obs_track=cur_track,
+            obs_tinb=cur_tinb, prior_samples=pr_hoisted, freeze_prior_confs=freeze, **dkw,
+        )
+        if anchored:
+            depth_, rigidness, dp_confs, track, tinb = dr
+        else:
+            depth_, rigidness, dp_confs = dr
+        poses6_ = cam.poses6
+        if cfg.norm_world_scale and not use_priors:
+            poses6_, depth_ = _normalize_world_scale_pure(poses6_, depth_, n_flows)
+        if track_delta:
+            a = n_flows
+            rot_d = torch.linalg.norm(poses6_[:a, :3] - poses6[:a, :3], dim=1)
+            t_mag = torch.clamp_min(torch.linalg.norm(poses6_[:a, 3:6], dim=1), 1e-6)
+            tr_d = torch.linalg.norm(poses6_[:a, 3:6] - poses6[:a, 3:6], dim=1) / t_mag
+            pose_delta = float((rot_d + tr_d).max()) if a > 0 else 0.0
+            iters_remain = max(iters_remain, 0)
+        if early_stop:
+            if pose_delta <= cfg.pose_converge_eps and iters_cur + 1 >= cfg.early_stop_min_iters:
+                iters_remain = min(iters_remain, 1)
+        depth, poses6 = depth_, poses6_
+        covars, densities, counts = cam.pose_covars, cam.pose_densities, cam.pose_sample_counts
+        rig_dens = cam.rigidness_densities
+
+    if freeze:
+        dp_confs = em.update_prior_confs(depth, priors, dp_confs, dp_Rs0, dp_ts0, params)
+    st = dict(
+        depth=depth, rigidness=rigidness, dp_confs=dp_confs, poses6=poses6, covars=covars,
+        densities=densities, counts=counts, n_flows=n_flows, iters_cur=iters_cur,
+        iters_remain=iters_remain, rig_dens=rig_dens,
+    )
+    if track_delta:
+        st["pose_delta"] = pose_delta
+    if anchored:
+        st["track"], st["tinb"] = track, tinb
+    return st
+
+
 @dataclass
 class VoldorEngine:
     """Device-resident EM state plus the solve-loop control flow."""
@@ -413,18 +581,6 @@ class VoldorEngine:
     def _params(self) -> em.EmParams:
         return em.EmParams.from_config(self.cfg, self.has_disparity)
 
-    def _depth_kw(self):
-        cfg = self.cfg
-        return dict(
-            gstep=cfg.depth_global_prop_step,
-            lwidth=cfg.depth_local_prop_width,
-            mode=cfg.depth_local_prop_mode,
-            fb=bool(cfg.fb_smooth),
-            rig_only=not cfg.optimize_depth,
-            tracked=cfg.depth_cost_mode in ("tracked", "anchored"),
-            anchored=cfg.depth_cost_mode == "anchored",
-        )
-
     def _uniforms(self):
         return em.draw_depth_uniforms(self.gen, self.cfg.depth_rand_samples, self.h, self.w, self.device)
 
@@ -438,7 +594,7 @@ class VoldorEngine:
         use_priors = self.n_depth_priors > 0
         if not use_flows and not use_priors:
             return
-        kw = self._depth_kw()
+        kw = depth_kw(self.cfg)
         kw["rig_only"] = rigidness_only
         ret = _depth_round_core(
             self.depth, self.flows, self.rigidness, self.poses6, self.priors,
@@ -447,30 +603,6 @@ class VoldorEngine:
             cfg.depth_range_factor, use_flows=use_flows, use_priors=use_priors, **kw,
         )
         self.depth, self.rigidness, self.dp_confs = ret[:3]
-
-    def _pose_hp(self):
-        cfg = self.cfg
-        return dict(
-            rigidness_threshold=cfg.rigidness_threshold,
-            rigidness_sum_threshold=cfg.rigidness_sum_threshold,
-            sample_min_depth=cfg.pose_sample_min_depth,
-            sample_max_depth=cfg.pose_sample_max_depth,
-            max_trace_on_flow=cfg.max_trace_on_flow,
-            pose_sample_stride=cfg.pose_sample_stride,
-            n_poses_to_sample=cfg.n_poses_to_sample,
-            meanshift_kernel_var=cfg.meanshift_kernel_var,
-            meanshift_rvec_scale=cfg.meanshift_rvec_scale,
-            meanshift_epsilon=cfg.meanshift_epsilon,
-            meanshift_max_iters=cfg.meanshift_max_iters,
-            meanshift_max_init_trials=cfg.meanshift_max_init_trials,
-            meanshift_good_init_confidence=cfg.meanshift_good_init_confidence,
-            rg_trunc_sigma=cfg.rg_trunc_sigma,
-            rg_covar_reg_lambda=cfg.rg_covar_reg_lambda,
-            rg_pose_scaling=cfg.rg_pose_scaling,
-            rg_epsilon=cfg.rg_epsilon,
-            rg_max_iters=cfg.rg_max_iters,
-            minimal_solver="lambdatwist" if cfg.lambdatwist else "ap3p",
-        )
 
     # ------------------------------------------------------------------
     def bootstrap(self):
@@ -513,105 +645,18 @@ class VoldorEngine:
     # ------------------------------------------------------------------
     def solve(self, defer_host: bool = False) -> int:
         """The EM loop (voldor.cpp:130-149, ``engine.py:429-656``)."""
-        cfg = self.cfg
         if self.n_depth_priors == 0:
             self.bootstrap()
-        params = self._params()
-        hp = self._pose_hp()
-        dkw = self._depth_kw()
-        use_priors = self.n_depth_priors > 0
-        anchored = dkw["anchored"]
-        flows = self.flows
-
-        obs_track = obs_tinb = None
-        if (dkw["tracked"] and not dkw["rig_only"]) or anchored or cfg.pose_collect_mode == "obs":
-            obs_track, obs_tinb = em.precompute_obs_tracks(flows, self.n_flows, params)
-
-        freeze = use_priors and cfg.prior_sample_mode == "solve" and dkw["tracked"] and not dkw["rig_only"]
-        pr_hoisted = None
-        if freeze:
-            dp_Rs0 = lie.so3_exp(self.dp_poses6[:, :3])
-            dp_ts0 = self.dp_poses6[:, 3:6]
-            pr_hoisted = em.precompute_prior_samples(
-                self.depth, self.priors, self.dp_pconfs, self.dp_confs, dp_Rs0, dp_ts0, params
-            )
-
-        extend = cfg.max_iters_ext > cfg.max_iters
-        early_stop = cfg.early_stop_min_iters > 0
-        track_delta = extend or early_stop
-
-        depth, rigidness, dp_confs = self.depth, self.rigidness, self.dp_confs
-        poses6, covars = self.poses6, self.pose_covars
-        densities, counts = self.pose_densities_dev, self.pose_sample_counts_dev
-        n_flows, iters_cur, iters_remain = self.n_flows, 0, cfg.max_iters
-        pose_delta = float("inf")
-        track, tinb = obs_track, obs_tinb  # round 1 scores against frame-0 tracks
-        rig_dens = torch.zeros(flows.shape[0], dtype=torch.float32, device=self.device)
-
-        while True:
-            keep = iters_remain > 0
-            if extend:
-                keep = keep or (iters_cur < cfg.max_iters_ext and pose_delta > cfg.pose_converge_eps)
-            if not (keep and n_flows > 0):
-                break
-            iters_cur += 1
-            iters_remain -= 1
-            allow_trunc = iters_cur > cfg.no_trunc_iters
-            rg_ref = bool(cfg.rg_refine) and ((not cfg.rg_refine_last_only) or iters_remain == 0)
-            cur_track = track if anchored else obs_track
-            cur_tinb = tinb if anchored else obs_tinb
-            sweep_args = (
-                depth, flows, rigidness, poses6, covars, densities, counts, n_flows,
-                allow_trunc, rg_ref, self.gen, params,
-            )
-            sweep_kw = dict(
-                trunc_rigidness_density=cfg.trunc_rigidness_density,
-                trunc_sample_density=cfg.trunc_sample_density, **hp,
-            )
-            jac_kw = dict(collect_mode=cfg.pose_collect_mode, obs_track=cur_track, obs_tinb=cur_tinb, **sweep_kw)
-            if cfg.pose_window_sweep == "seq" or (cfg.pose_window_sweep == "hybrid" and iters_cur == 1):
-                cam = _cameras_window_core(*sweep_args, **sweep_kw)
-            elif cfg.pose_window_sweep in ("jacobi", "hybrid"):
-                cam = _cameras_window_jacobi_core(*sweep_args, **jac_kw)
-            else:
-                raise ValueError(f"unknown pose_window_sweep {cfg.pose_window_sweep!r}")
-            n_flows = cam.n_flows_new
-            if cam.truncated:
-                iters_remain = max(iters_remain, cfg.min_iters_after_trunc)
-            dr = _depth_round_core(
-                depth, flows, rigidness, cam.poses6, self.priors, self.dp_pconfs, dp_confs,
-                self.dp_poses6, n_flows, params, self._uniforms(), cfg.fb_emm,
-                cfg.fb_no_change_prob, cfg.depth_range_factor,
-                use_flows=True, use_priors=use_priors, obs_track=cur_track,
-                obs_tinb=cur_tinb, prior_samples=pr_hoisted, freeze_prior_confs=freeze, **dkw,
-            )
-            if anchored:
-                depth_, rigidness, dp_confs, track, tinb = dr
-            else:
-                depth_, rigidness, dp_confs = dr
-            poses6_ = cam.poses6
-            if cfg.norm_world_scale and not use_priors:
-                poses6_, depth_ = _normalize_world_scale_pure(poses6_, depth_, n_flows)
-            if track_delta:
-                a = n_flows
-                rot_d = torch.linalg.norm(poses6_[:a, :3] - poses6[:a, :3], dim=1)
-                t_mag = torch.clamp_min(torch.linalg.norm(poses6_[:a, 3:6], dim=1), 1e-6)
-                tr_d = torch.linalg.norm(poses6_[:a, 3:6] - poses6[:a, 3:6], dim=1) / t_mag
-                pose_delta = float((rot_d + tr_d).max()) if a > 0 else 0.0
-                iters_remain = max(iters_remain, 0)
-            if early_stop:
-                if pose_delta <= cfg.pose_converge_eps and iters_cur + 1 >= cfg.early_stop_min_iters:
-                    iters_remain = min(iters_remain, 1)
-            depth, poses6 = depth_, poses6_
-            covars, densities, counts = cam.pose_covars, cam.pose_densities, cam.pose_sample_counts
-            rig_dens = cam.rigidness_densities
-
-        if freeze:
-            dp_confs = em.update_prior_confs(depth, self.priors, dp_confs, dp_Rs0, dp_ts0, params)
-        self.depth, self.rigidness, self.dp_confs = depth, rigidness, dp_confs
-        self.poses6, self.pose_covars = poses6, covars
-        self.pose_densities_dev, self.pose_sample_counts_dev = densities, counts
-        self._st_scalars = (n_flows, iters_cur, rig_dens)
+        st = _solve_loop(
+            self.cfg, self._params(), pose_hp(self.cfg), depth_kw(self.cfg), self.gen,
+            self.depth, self.flows, self.rigidness, self.priors, self.dp_pconfs, self.dp_confs,
+            self.dp_poses6, self.poses6, self.pose_covars, self.pose_densities_dev,
+            self.pose_sample_counts_dev, self.n_flows,
+        )
+        self.depth, self.rigidness, self.dp_confs = st["depth"], st["rigidness"], st["dp_confs"]
+        self.poses6, self.pose_covars = st["poses6"], st["covars"]
+        self.pose_densities_dev, self.pose_sample_counts_dev = st["densities"], st["counts"]
+        self._st_scalars = (st["n_flows"], st["iters_cur"], st["rig_dens"])
         if defer_host:
             return -1
         self.finalize_host()
@@ -669,7 +714,7 @@ class VoldorEngine:
             self.pose_densities_dev, self.pose_sample_counts_dev, self.n_flows,
             allow_trunc, rg_refine, self.gen, self._params(),
             trunc_rigidness_density=cfg.trunc_rigidness_density,
-            trunc_sample_density=cfg.trunc_sample_density, **self._pose_hp(),
+            trunc_sample_density=cfg.trunc_sample_density, **pose_hp(self.cfg),
         )
         self.poses6, self.pose_covars = res.poses6, res.pose_covars
         self.pose_densities_dev = res.pose_densities

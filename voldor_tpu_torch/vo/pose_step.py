@@ -10,9 +10,11 @@ registry ``_get_batch_p4p`` :398 (LambdaTwist or AP3P), ``_pose_step_core``
 :408 with its single-frame wrapper ``optimize_camera_pose`` :598,
 ``_cameras_window_core`` :639 (sequential sweep) and
 ``_cameras_window_jacobi_core`` :740 (batched sweep). The window sweep's
-``lax.cond``/``fori_loop`` become host control flow; the multi-chip
-``shard_hint`` calls are dropped. Random draws come from a
-``torch.Generator`` through the ``draw_*`` helpers of each op.
+``lax.cond``/``fori_loop`` become host control flow. Random draws come from
+a ``torch.Generator`` through the ``draw_*`` helpers of each op. In place
+of the JAX package's ``shard_hint`` on the hypothesis pool (:493-495,
+:834-836), ``_solve_and_fuse`` splits the drawn hypotheses over the active
+mesh's ``hyp`` axis (``parallel/hints.py``); without one it is unchanged.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from voldor_tpu_torch.ops.image import bilinear_sample
 from voldor_tpu_torch.ops.meanshift import draw_meanshift_trials, meanshift
 from voldor_tpu_torch.ops.p3p import draw_p4p_indices
 from voldor_tpu_torch.ops.robust_gaussian import fit_robust_gaussian
+from voldor_tpu_torch.parallel import hints
 from voldor_tpu_torch.vo.em import EmParams, _backproject, _pixel_grid, _transform
 
 
@@ -277,7 +280,15 @@ def _solve_and_fuse(p2s, p3s, valid, ms_init, successive, rg_refine: bool, gen, 
     batch_p4p = _get_batch_p4p(hp.get("minimal_solver", "lambdatwist"))
     n_points = valid.sum(dim=-1).to(torch.int32)
     idx = draw_p4p_indices(gen, valid, hp["n_poses_to_sample"])
-    rvecs, tvecs, ok = batch_p4p(p2s, p3s, valid, idx, p.fx, p.fy, p.cx, p.cy)
+    # the hypotheses, drawn once above, split over the active mesh's hyp
+    # axis (one slice without one): each device solves its slice against
+    # the replicated correspondences
+    hyp = hints.axis_devices("hyp") or [valid.device]
+    parts = [
+        batch_p4p(p2s.to(d), p3s.to(d), valid.to(d), i, p.fx, p.fy, p.cx, p.cy)
+        for d, i in zip(hyp, hints.split(idx, hyp, 1))
+    ]
+    rvecs, tvecs, ok = (hints.gather([part[j] for part in parts], 1) for j in range(3))
     rs = hp["meanshift_rvec_scale"]
     pool = torch.cat([rvecs * rs, tvecs], dim=-1)
     pool_valid = ok.to(torch.float32)
