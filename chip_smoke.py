@@ -44,7 +44,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward and one backward step, timed on one thread, times h + w), the
    chunked design's chain floor (compositions and steps per line pass,
    each timed on one thread) and, with --parent, the other checkout's
-   kernel;
+   kernel; then, on the full-SLAM scene of phase 12, the four falign
+   kernel launches (linearise, its scores mode, the reduce pass, LM
+   propose and accept) at the 4-pair photometric batch (stride 4) and the
+   loop-closure batch (stride 3), beside their plain versions and bounds
+   (the linearise kernel's bytes sector by sector, its operations counted
+   from its plain formula, FALIGN_PX), and one torch.bmm of the plain
+   Jacobians' Gram matrices as a yardstick;
 7. the VO windows: three consecutive 5-flow mono VO windows of the bench
    scene (613x185, seed 7) through voldor_tpu_torch's VO entry point on the
    card, with 0, 1 and 2 depth priors and the SLAM layer's constant-velocity
@@ -83,21 +89,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    and scores within the kind's limits, and the card's covariances
    within FALIGN_COV_RTOL of pair_covariances on the CPU at the card's
    parameters; and bilinear sampling at a NaN coordinate on the card gives
-   NaN;
+   NaN; then the falign kernels against their plain versions on the card
+   (the geo, photo and lc batches at strides 3, 4 and 6: the linearise
+   kernel's per-pair blocks within FALIGN_BLOCK_RTOL of each block's
+   largest entry, its scores mode's visible pixels equal, two launches
+   bitwise equal; one LM step, a second, rejected steps, a failed
+   Cholesky factor and frozen lanes through propose and accept against
+   the plain versions fed the same proposal: the step within
+   FALIGN_STEP_RTOL, the next state within FALIGN_BLOCK_RTOL, iteration
+   counts and done flags equal), a chunk of LM iterations twice (bitwise
+   equal) and under set_sync_debug_mode("error"), and wrong inputs
+   refused (a CPU tensor, wrong shapes and types, a lane too large for
+   shared memory);
 13. PGO: drifted circle graphs with loop edges at 60 and 600 poses through
    pgo() (dense), pgo(reduce_threshold_dofs=0) (chain reduction) and
    pgo_solve_jit (matrix-free CG), on the card and on the CPU: poses within
    PGO_POSE_TOL;
 14. mapping times: falign_pairs per call and per batched LM iteration at 4
    and 16 pairs with its kernel launches and host syncs (torch.profiler),
-   PGO dense and CG per solve at 60 and 600 poses;
+   the launches of one chunk of 8 LM iterations alone (at most 10 per
+   iteration, and at most 37 host syncs per 4-pair call), PGO dense and CG
+   per solve at 60 and 600 poses;
 15. slam-full-mono: the full-SLAM scene through VOLDOR_SLAM(mode="mono",
    device="cuda") configured exactly as bench.py:_make_slam_e2e, with
    enable_loop_closure() (the built-in vocabulary), vo_thread and
    mapping_thread as two threads; one checked pass (threads joined, finite
    poses, >= 1 accepted falign-local edge, >= 1 loop-closure candidate,
    lc_link event and falign-lc edge, a global PGO after the first LC link,
-   the kernels' launches, Sim3 ATE < 0.02 * extent), one timed pass
+   the kernels' launches, every falign kernel launched, Sim3 ATE < 0.02 *
+   extent), one timed pass
    (frames/s, the share of the wall in falign and in PGO, how much of the
    mapping work overlaps the VO windows, the host seconds of append_kf's
    loop-closure work split into ORB, retrieval with its refits and the
@@ -110,7 +130,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    --resize 0.5, so abs_resize_factor 0.5) with --enable_mapping
    --enable_loop_closure --save_poses --save_map --metrics in a child
    process; it must exit 0, write 61 poses that pass the Sim3-ATE gate,
-   its flow loader must have taken the native prefetcher (it prints
+   launch every kernel (the falign kernels included), its flow loader
+   must have taken the native prefetcher (it prints
    "(native IO)"), and its map must load (checkpoint.load_map) into a new
    VOLDOR_SLAM with the same poses; beside it, the seconds to read the 60
    .flo files through the native prefetcher and through the Python reader
@@ -152,7 +173,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The kernels' launch counts sum the main-path phases (7, 10, 11, 15, 16, 17,
 18 and 19; phase 16's child process prints its own counts); the record
-also gives phases 7-18's sum and phase 19's apart.
+also gives phases 7-18's sum and phase 19's apart. The falign kernels run
+on the mapping half only: their launches are those of phases 15 and 16
+(the full pass's checked pass and the CLI's child), by path in the record.
 The second-to-last line of stdout is a JSON record of the kernels; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -886,18 +909,23 @@ def check_window_covis(np, torch, handle, inputs):
 
 def reset_counts():
     from voldor_tpu_torch.ops import cost as cost_mod
+    from voldor_tpu_torch.ops import falign_kernels as fk
     from voldor_tpu_torch.ops import fb_smooth as fb
 
     cost_mod.cost_kernel_launches = cost_mod.cost_score_launches = 0
     fb.fb_smooth_kernel_launches = 0
+    fk.reset_counts()
 
 
 def read_counts():
+    """Launches since reset_counts: the cost kernel (score mode apart), fb_smooth,
+    and the falign kernels (linearize, reduce, lm_propose, lm_accept)."""
     from voldor_tpu_torch.ops import cost as cost_mod
+    from voldor_tpu_torch.ops import falign_kernels as fk
     from voldor_tpu_torch.ops import fb_smooth as fb
 
     return dict(cost=cost_mod.cost_kernel_launches, score=cost_mod.cost_score_launches,
-                fb=fb.fb_smooth_kernel_launches)
+                fb=fb.fb_smooth_kernel_launches, **fk.read_counts())
 
 
 def check_counts(what, counts, em_iters):
@@ -906,6 +934,13 @@ def check_counts(what, counts, em_iters):
                              f"expected >= {8 * em_iters}")
     if counts["fb"] < 1:
         raise AssertionError(f"{what}: the fb_smooth kernel was never launched")
+
+
+def check_falign_counts(what, counts):
+    """The mapping half ran on the falign kernels: every one was launched."""
+    missing = [k for k in ("linearize", "reduce", "lm_propose", "lm_accept") if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"{what}: falign kernels never launched: {missing}")
 
 
 def run_slam_pass(np, torch, mode, flows, disps=None, check=False, user_config=""):
@@ -1294,11 +1329,11 @@ def phase_falign(np, torch, sc):
     real_body = fsolver.lm_body
     off_card = []
 
-    def checked_body(prob, st, lanes, stride):
+    def checked_body(prob, st, lanes, stride, *a, **k):
         for name, t in list(prob.maps._asdict().items()) + list(st._asdict().items()):
             if t.device.type != "cuda":
                 off_card.append(name)
-        return real_body(prob, st, lanes, stride)
+        return real_body(prob, st, lanes, stride, *a, **k)
 
     worst = dict(scale=0.0, score=0.0, cov=0.0)
     failed = []
@@ -1353,6 +1388,399 @@ def phase_falign(np, torch, sc):
     if cov_failed:
         raise AssertionError(f"falign covariances on the card disagree with the CPU's: {cov_failed}")
     return worst
+
+
+# --------------------------------------------------------------------------
+# phase 12, second half: the falign kernels against their plain versions
+# --------------------------------------------------------------------------
+
+# The CPU tests' tolerances (tests/test_torch_falign.py, module docstring):
+# Jacobian-derived blocks within 1e-4 of the block's largest entry (per pair
+# evaluation; the cost relative to itself), one LM step within 2e-3 of its
+# largest entry, the next state's H and g, at the same trial, within the
+# blocks' 1e-4; visible-pixel counts equal.
+FALIGN_BLOCK_RTOL = 1e-4
+FALIGN_STEP_RTOL = 2e-3
+FALIGN_STRIDES = (3, 4, 6)
+# The linearise kernel's least work per pixel, counted from the plain
+# formula (residual.py:pair_residual_and_grads): the grid coordinates (2
+# sub, 2 div), the points in the ref and tar cameras (34), the projection
+# and its tests (17, div), the sampled taps with their derivatives (16 +
+# 5 x 21), the geometric term and its tests (38, 2 div), the weights and
+# the photometric term (14, div), the robustifier (5, log, sqrt), the
+# reverse pass (30 + 3 x 41, 3 div), the pose, scale and colour columns
+# (95) and the masks (18): ~495 FP32 instructions, 9 divisions, a square
+# root and a log; then the 190 products of the Gram matrix, one FMA each.
+FALIGN_PX = least_ops(495, div=9, sqrt=1, log=1)
+FALIGN_GRAM = least_ops(190)
+# scores mode (residual.py:pair_residual_map, per pixel): the back-projection
+# (2 sub, 2 div, 3), two rotations by rvec (2 x 24) and their offsets (6),
+# the projection and its tests (17, 2 div), the taps (16 + 5 x 7), the
+# geometric term (30, 2 div), the photometric term (7), the robustifier (5,
+# log, sqrt) and the score (5, div)
+FALIGN_SCORE_PX = least_ops(170, div=7, sqrt=1, log=1)
+
+
+def falign_kernel_inputs(np, torch, sc, kind):
+    """(prob, params, lanes) of phase 12's batch of a kind on the card: its
+    maps (the lc batch with its stage-2 images), the init poses, and
+    seeded depth-scale, colour-scale and colour-offset parameters, so that
+    every Jacobian column is exercised."""
+    from voldor_tpu_torch.falign import api as falign_api
+    from voldor_tpu_torch.falign.residual import precompute_maps
+
+    if kind == "lc":
+        pairs, kw, images = falign_lc_batch(np, torch, sc)
+        kw = dict(kw, images=images)
+        init = np.zeros((len(pairs), 2, 6), np.float32)
+    else:
+        pairs, kw = falign_batch(np, torch, sc, 4, kind == "photo")
+        init = kw["poses_init"]
+    P = len(pairs)
+    dev = torch.device("cuda")
+    shape = (P * 2, H, W)
+    maps = precompute_maps(falign_api._tensor(kw["depths"], dev, shape),
+                           falign_api._tensor(kw["weights"], dev, shape),
+                           falign_api._tensor(kw.get("images"), dev, shape),
+                           kw["fx"], kw["fy"], kw["cx"], kw["cy"])
+    photo = "images" in kw
+    gauge = np.zeros((1, 18), np.float32)
+    gauge[0, 6] = gauge[0, 15] = 1.0
+    prob = falign_api._problem(maps, ((0, 1), (1, 0)), 2, kw["fx"], kw["fy"], kw["cx"], kw["cy"],
+                               kw["vbf"], kw["crw"], photo, falign_api._dim_mask(2, True, photo),
+                               gauge, dev)
+    params = np.zeros((P, 2, 9), np.float32)
+    params[:, :, :6] = init
+    params[:, :, 6:] = np.random.default_rng(300).normal(0, [0.01, 0.02, 0.5], (P, 2, 3))
+    return prob, torch.as_tensor(params, device=dev), torch.arange(P, device=dev)
+
+
+def plain_blocks(prob, params, lanes, stride):
+    from voldor_tpu_torch.falign.residual import pair_normal_blocks
+
+    return pair_normal_blocks(params, lanes, prob.pairs, prob.dim_mask, prob.maps, *prob.intr,
+                              prob.vbf, prob.crw, prob.use_photo, stride)
+
+
+def rel_err(a, b):
+    """Largest |a - b| over each leading-axis slice, relative to that slice's
+    largest |b|; the largest over the slices."""
+    a, b = a.double().reshape(a.shape[0], -1), b.double().reshape(b.shape[0], -1)
+    scale = b.abs().amax(dim=1).clamp_min(1e-30)
+    return float(((a - b).abs().amax(dim=1) / scale).max())
+
+
+def block_errs(kern, plain):
+    return {name: rel_err(getattr(kern, name), getattr(plain, name)) for name in plain._fields}
+
+
+def state_errs(torch, a, b):
+    """Kernel state a against plain state b: exact flags, relative values."""
+    out = {k: bool(torch.equal(getattr(a, k), getattr(b, k))) for k in ("it", "done")}
+    for k in ("params", "lam", "cost", "w2"):
+        out[k] = rel_err(getattr(a, k)[:, None], getattr(b, k)[:, None])
+    for k in ("H", "g"):
+        out[k] = rel_err(getattr(a, k), getattr(b, k))
+    return out
+
+
+def expect_refused(exc, fn, what):
+    try:
+        fn()
+    except exc as e:
+        log(f"[falign-kernels] {what}: refused ({type(e).__name__}: {e})")
+        return
+    raise AssertionError(f"falign kernels: {what} was not refused")
+
+
+def lm_case(np, torch, prob, st, lanes, stride, it_end, what):
+    """One LM iteration from st through the kernels and through the plain
+    versions fed the kernel's proposal. Returns the readings; raises where
+    they disagree beyond the tolerances."""
+    from voldor_tpu_torch.ops import falign_kernels as fk
+
+    pk = fk.lm_propose(prob, st, it_end)
+    pp = fk.lm_propose_reference(prob, st, it_end)
+    step_k, step_p = st.params - pk.trial, st.params - pp.trial
+    act = pp.active.bool()
+    rec = dict(active=pp.active.tolist(), ok=pp.info[:, 4].tolist())
+    rec["flags_equal"] = bool(torch.equal(pk.active, pp.active)
+                              and torch.equal(pk.info[:, 4:6], pp.info[:, 4:6]))
+    rec["step"] = rel_err(step_k[act], step_p[act]) if bool(act.any()) else 0.0
+    rec["step_abs"] = float((step_k - step_p).abs().max())
+    rec["info"] = {k: rel_err(pk.info[act, i:i + 1], pp.info[act, i:i + 1]) if bool(act.any())
+                   else 0.0 for i, k in enumerate(fk.INFO[:4])}
+    part = fk.linearize_partials(prob, pk.trial, lanes, stride, active=pk.active)
+    sk = fk.lm_accept(prob, st, pk, part)
+    sp = fk.lm_accept_reference(prob, st, pk, plain_blocks(prob, pk.trial, lanes, stride))
+    rec["state"] = state_errs(torch, sk, sp)
+    rec["accepted"] = (sp.cost != st.cost).tolist()
+    # w2 and the current cost come from the carried state; the predicted drop
+    # and the largest step entry from the step
+    bad = (not rec["flags_equal"] or rec["step"] > FALIGN_STEP_RTOL
+           or max(rec["info"]["w2"], rec["info"]["cur_cost"]) > FALIGN_BLOCK_RTOL
+           or max(rec["info"]["pred"], rec["info"]["step_inf"]) > FALIGN_STEP_RTOL
+           or not (rec["state"]["it"] and rec["state"]["done"])
+           or max(rec["state"][k] for k in ("params", "lam", "cost", "w2", "H", "g"))
+           > FALIGN_BLOCK_RTOL)
+    log(f"[falign-kernels] LM {what}: {json.dumps(rec)}")
+    if bad:
+        raise AssertionError(f"falign LM kernels disagree with their plain versions: {what}")
+    return rec, sk
+
+
+def phase_falign_kernels(np, torch, sc):
+    """The linearise kernel (both modes, with its reduce pass) and the two LM
+    kernels against their plain versions on the card, on phase 12's geo,
+    photo and loop-closure batches at strides 3, 4 and 6; two launches on
+    the same inputs bitwise equal; a rejected step, a failed Cholesky
+    factor and frozen lanes; wrong inputs refused; one chunk of LM
+    iterations under set_sync_debug_mode("error")."""
+    from voldor_tpu_torch.falign import solver as fsolver
+    from voldor_tpu_torch.falign.residual import pair_score_sums
+    from voldor_tpu_torch.ops import falign_kernels as fk
+
+    worst = dict(blocks=0.0, blocks_abs=0.0, cons=0.0, step=0.0, step_abs=0.0)
+    for kind in ("geo", "photo", "lc"):
+        prob, params, lanes = falign_kernel_inputs(np, torch, sc, kind)
+        for stride in FALIGN_STRIDES:
+            kern = fk.linearize(prob, params, lanes, stride)
+            plain = plain_blocks(prob, params, lanes, stride)
+            errs = block_errs(kern, plain)
+            p1 = fk.linearize_partials(prob, params, lanes, stride)
+            p2 = fk.linearize_partials(prob, params, lanes, stride)
+            nk, ck = fk.score_sums(prob, params, lanes, stride, 1.0)
+            npl, cpl = pair_score_sums(params, lanes, prob.pairs, prob.maps, *prob.intr, prob.vbf,
+                                       prob.crw, prob.use_photo, stride,
+                                       torch.tensor(1.0, device="cuda"))
+            s1 = fk.linearize_partials(prob, params, lanes, stride, scores=True)
+            s2 = fk.linearize_partials(prob, params, lanes, stride, scores=True)
+            torch.cuda.synchronize()
+            cons = rel_err(ck[:, None], cpl[:, None])
+            same_vis = bool(torch.equal(nk, npl))
+            bitwise = bool(torch.equal(p1, p2) and torch.equal(s1, s2))
+            worst["blocks"] = max(worst["blocks"], max(errs.values()))
+            worst["blocks_abs"] = max([worst["blocks_abs"]] + [
+                float((getattr(kern, k) - getattr(plain, k)).abs().max()) for k in plain._fields])
+            worst["cons"] = max(worst["cons"], cons)
+            log(f"[falign-kernels] {kind} stride {stride}: blocks vs plain (relative to each "
+                f"block's largest entry) {json.dumps(errs)}; visible pixels kernel "
+                f"{nk.long().tolist()} plain {npl.long().tolist()}; consistency sums {cons:.3e}; "
+                f"two launches bitwise equal {bitwise}")
+            if not same_vis:
+                raise AssertionError(f"falign scores: visible pixels differ ({kind}, stride {stride})"
+                                     f": kernel {nk.tolist()} plain {npl.tolist()}")
+            if max(errs.values()) > FALIGN_BLOCK_RTOL or cons > FALIGN_BLOCK_RTOL or not bitwise:
+                raise AssertionError(f"falign linearise kernel disagrees ({kind}, stride {stride})")
+            st = fsolver.phase_init(prob, params, lanes, stride)
+            rec, st1 = lm_case(np, torch, prob, st, lanes, stride, st.it + 1,
+                               f"{kind} stride {stride}, one step")
+            worst["step"] = max(worst["step"], rec["step"])
+            worst["step_abs"] = max(worst["step_abs"], rec["step_abs"])
+            # a second step from the first's state (lam and w2 carried)
+            lm_case(np, torch, prob, st1, lanes, stride, st1.it + 1,
+                    f"{kind} stride {stride}, a second step")
+        st = fsolver.phase_init(prob, params, lanes, 4)
+        # every step rejected: the carried cost below any trial's
+        lm_case(np, torch, prob, st._replace(cost=torch.zeros_like(st.cost)), lanes, 4,
+                st.it + 1, f"{kind}, rejected steps")
+        # a failed Cholesky factor: the identity, ok false, the step rejected
+        eye = torch.eye(18, device="cuda").expand_as(st.H)
+        rec, _ = lm_case(np, torch, prob, st._replace(H=(-1e6 * eye).contiguous(),
+                                                      g=torch.zeros_like(st.g)),
+                         lanes, 4, st.it + 1, f"{kind}, failed factor")
+        if any(rec["ok"]):
+            raise AssertionError("falign LM: a negative definite system factored")
+        # frozen lanes: done (the even ones), or all out of budget
+        st_d = st._replace(done=lanes % 2 == 0)
+        frozen = fk.lm_iteration(prob, st_d, lanes, 4, st.it + 1)
+        if not all(torch.equal(x[0::2], y[0::2]) for x, y in zip(frozen, st_d)):
+            raise AssertionError("falign LM: a lane that was done changed")
+        if not all(torch.equal(x, y) for x, y in zip(fk.lm_iteration(prob, st, lanes, 4, st.it), st)):
+            raise AssertionError("falign LM: lanes out of budget changed")
+    # reproducible run to run: one whole chunk twice
+    prob, params, lanes = falign_kernel_inputs(np, torch, sc, "photo")
+    st = fsolver.phase_init(prob, params, lanes, 4)
+    a = fsolver.lm_iterate(prob, st, lanes, 4, 8)
+    b = fsolver.lm_iterate(prob, st, lanes, 4, 8)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("falign LM: two runs of one chunk differ")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fsolver.lm_iterate(prob, st, lanes, 4, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[falign-kernels] a chunk of 8 LM iterations twice: bitwise equal; under "
+        f"set_sync_debug_mode('error'): no host sync; iterations per lane {a.it.tolist()}")
+    # refusals
+    part = fk.linearize_partials(prob, params, lanes, 4)
+    prop = fk.lm_propose(prob, st, st.it + 1)
+    expect_refused(ValueError, lambda: fk.linearize_partials(prob, params.cpu(), lanes, 4),
+                   "params on the CPU")
+    expect_refused(ValueError, lambda: fk.linearize_partials(
+        prob, params[..., :8].contiguous(), lanes, 4), "params of a wrong shape")
+    expect_refused(ValueError, lambda: fk.lm_accept(prob, st, prop, part[..., :100].contiguous()),
+                   "partials of a wrong shape")
+    expect_refused(TypeError, lambda: fk.lm_propose(prob, st._replace(it=st.it.long()),
+                                                    st.it + 1), "an int64 iteration count")
+    expect_refused(RuntimeError, lambda: fk._check_lm_fits(params.device, 40, 1),
+                   "a 40-frame lane (360 parameters)")
+    log(f"[falign-kernels] LM shared memory: a 2-frame lane {fk.lm_smem_bytes(2, 1)} B, an "
+        f"8-frame lane {fk.lm_smem_bytes(8, 1)} B; largest error {json.dumps(worst)}")
+    return worst
+
+
+def captured_call(call, name):
+    """Run a wrapper call, recording the C entry point `name` and the
+    arguments of its launch. Returns (the call's result, (fn, args))."""
+    from voldor_tpu_torch.ops import _build
+
+    real = _build.function
+    seen = []
+
+    def spy(fname, argtypes):
+        fn = real(fname, argtypes)
+
+        def rec(*a):
+            if fname == name:
+                seen.append((fn, a))
+            return fn(*a)
+        return rec
+
+    _build.function = spy
+    try:
+        out = call()
+    finally:
+        _build.function = real
+    if len(seen) != 1:
+        raise AssertionError(f"{name}: {len(seen)} launches recorded, expected 1")
+    return out, seen[0]
+
+
+def falign_least_bytes(np, torch, prob, params, lanes, stride):
+    """The linearise kernel's least bytes at these inputs: the 32-byte
+    sectors of the ref-side reads (depth, image when photometric, weight
+    at the strided grid), and of the tar-side taps (two rows of two
+    packed pixels) of the pixels that project into the tar frame, each
+    sector once; the parameters once; the per-pair blocks written once."""
+    from voldor_tpu_torch.falign.residual import lane_pairs
+    from voldor_tpu_torch.ops import falign_kernels as fk
+    from voldor_tpu_torch.ops.lie import rotate_rvec
+
+    F, h, w, _ = prob.maps.packed.shape
+    fx, fy, cx, cy = prob.scalars[:4]
+    pr, pt, ref, tar = lane_pairs(params, lanes, prob.pairs)
+    ys = torch.arange(0, h, stride, device="cuda")
+    xs = torch.arange(0, w, stride, device="cuda")
+    px = (ys[:, None] * w + xs[None, :])[None] + (ref * h * w)[:, None, None]
+    chans = [0, 4] if prob.use_photo else [0]
+    sect = [torch.div(px * 20 + 4 * c, 32, rounding_mode="floor").flatten() for c in chans]
+    packed = set(torch.unique(torch.cat(sect)).tolist())
+    weights = torch.unique(torch.div(px * 4, 32, rounding_mode="floor")).numel()
+    d = prob.maps.depths[:, ::stride, ::stride][ref] * torch.exp(pr[:, 6])[:, None, None]
+    yy, xx = torch.meshgrid(ys.float(), xs.float(), indexing="ij")
+    p3r = torch.stack([((xx - cx) / fx) * d, ((yy - cy) / fy) * d, d], -1)
+    p3w = rotate_rvec(p3r, pr[:, None, None, :3]) + pr[:, None, None, 3:6]
+    r0 = -pt[:, :3]
+    p3t = rotate_rvec(p3w, r0[:, None, None]) - rotate_rvec(pt[:, 3:6], r0)[:, None, None]
+    z = p3t[..., 2]
+    u = fx * p3t[..., 0] / z + cx
+    v = fy * p3t[..., 1] / z + cy
+    inside = (u >= 0) & (u < w) & (v >= 0) & (v < h) & (z >= 1.0)
+    x0 = torch.clamp(torch.floor(u), 0, w - 2).long()
+    y0 = torch.clamp(torch.floor(v), 0, h - 2).long()
+    base = ((tar[:, None, None] * h + y0) * w + x0)[inside]
+    for row in (0, w):
+        start = (base + row) * 20
+        for s in range(3):  # 40 bytes span at most 3 sectors
+            sec = torch.div(start, 32, rounding_mode="floor") + s
+            keep = sec * 32 < start + 40
+            packed.update(torch.unique(sec[keep]).tolist())
+    B = ref.numel()
+    return 32 * (len(packed) + weights) + 4 * B * 18 + 4 * B * fk.N_GRAM
+
+
+def falign_times(np, torch, sc):
+    """Device-only times of the four falign kernel launches at phase 14's
+    4-pair photometric batch (stride 4) and the loop-closure batch (stride
+    3), through their C entry points (CUDA events over 100 back-to-back
+    launches), beside their plain versions (CUDA events around one call)
+    and their bounds. Returns the records of the linearise and LM
+    kernels."""
+    from voldor_tpu_torch.falign import solver as fsolver
+    from voldor_tpu_torch.falign.residual import pair_score_sums
+    from voldor_tpu_torch.ops import falign_kernels as fk
+
+    recs = {}
+    for kind, stride in (("photo", 4), ("lc", 3)):
+        prob, params, lanes = falign_kernel_inputs(np, torch, sc, kind)
+        st = fsolver.phase_init(prob, params, lanes, stride)
+        it_end = st.it + 1
+        # each launch's outputs stay referenced (part, red_out, ...) while
+        # its recorded pointers are launched again below
+        part, lin = captured_call(lambda: fk.linearize_partials(prob, params, lanes, stride),
+                                  "falign_linearize_launch")
+        red_out, red = captured_call(lambda: fk.reduce_partials(part), "falign_reduce_launch")
+        sc_out, sco = captured_call(lambda: fk.linearize_partials(
+            prob, params, lanes, stride, scores=True), "falign_linearize_launch")
+        prop, pro = captured_call(lambda: fk.lm_propose(prob, st, it_end),
+                                  "falign_lm_propose_launch")
+        lin_t = fk.linearize_partials(prob, prop.trial, lanes, stride, active=prop.active)
+        acc_out, acc = captured_call(lambda: fk.lm_accept(prob, st, prop, lin_t),
+                                     "falign_lm_accept_launch")
+        trial_blocks = plain_blocks(prob, prop.trial, lanes, stride)
+        ms = {}
+        for name, (fn, args) in (("linearize", lin), ("reduce", red), ("scores", sco),
+                                 ("propose", pro), ("accept", acc)):
+            ms[name] = device_ms(torch, lambda: checked(fn(*args), name))
+        plain = dict(
+            linearize=event_ms(torch, lambda: plain_blocks(prob, params, lanes, stride), 5),
+            scores=event_ms(torch, lambda: pair_score_sums(
+                params, lanes, prob.pairs, prob.maps, *prob.intr, prob.vbf, prob.crw,
+                prob.use_photo, stride, torch.tensor(1.0, device="cuda")), 5),
+            propose=event_ms(torch, lambda: fk.lm_propose_reference(prob, st, it_end), 5),
+            accept=event_ms(torch, lambda: fk.lm_accept_reference(prob, st, prop, trial_blocks), 5))
+        # the kernel's Gram reduction alone, as one torch.bmm over the plain
+        # Jacobians (a yardstick: the port never calls it)
+        from voldor_tpu_torch.falign.residual import pair_jacobians
+        res, Jr, Jt = pair_jacobians(params, lanes, prob.pairs, prob.dim_mask, prob.maps,
+                                     *prob.intr, prob.vbf, prob.crw, prob.use_photo, stride)
+        V = torch.cat([res[..., None], Jr, Jt], -1).reshape(-1, res.shape[-1], 19)
+        Vt = V.transpose(1, 2).contiguous()
+        bmm_ms = device_ms(torch, lambda: torch.bmm(Vt, V))
+        B, T = part.shape[0], part.shape[1]
+        hs, ws = fk.grid_size(H, W, stride)
+        n_px = B * hs * ws
+        fp32, sfu = ops_ms({"px": n_px, "gram": n_px}, {"px": FALIGN_PX, "gram": FALIGN_GRAM})
+        by = falign_least_bytes(np, torch, prob, params, lanes, stride) / HBM_BYTES_PER_S * 1e3
+        lin_bound = max(by, fp32, sfu)
+        s_fp32, s_sfu = ops_ms({"px": n_px}, {"px": FALIGN_SCORE_PX})
+        L, D = params.shape[0], 18
+        # the LM step: propose reads the state and writes the trial; accept
+        # reads the partials, the state and the trial and writes the state.
+        # Operations: the factor (D^3 / 6 FMAs, D square roots, D^2 / 2
+        # divisions) and the solves (D^2) per lane; the assembly's adds.
+        state_b = 4 * L * (D * D + D + 9 * 2 + 5)
+        lm_bytes = (2 * state_b + 4 * L * (18 + 8)) + (4 * B * T * fk.N_GRAM + state_b)
+        lm_fp32, lm_sfu = ops_ms({"l": L}, {"l": least_ops(D ** 3 // 6 + D * D + B // L * T * 190,
+                                                           div=D * D // 2 + 2 * D, sqrt=D)})
+        lm_bound = max(lm_bytes / HBM_BYTES_PER_S * 1e3, lm_fp32, lm_sfu)
+        recs[kind] = dict(stride=stride, pair_evals=B, tiles=T, ms=ms, plain_ms=plain,
+                          bmm_gram_ms=bmm_ms, linearize_bound_ms=lin_bound,
+                          linearize_bound_by="bytes" if by >= max(fp32, sfu) else "operations",
+                          linearize_bytes_ms=by, linearize_ops_ms=max(fp32, sfu),
+                          scores_bound_ms=max(s_fp32, s_sfu), lm_bound_ms=lm_bound,
+                          lm_bound_by="bytes" if lm_bytes / HBM_BYTES_PER_S * 1e3 >= max(
+                              lm_fp32, lm_sfu) else "operations")
+        log(f"[times] falign kernels, {kind} batch (stride {stride}, {B} pair evaluations x "
+            f"{hs}x{ws} pixels, {T} tiles): device ms per launch ({N_LAUNCH} launches) "
+            f"{json.dumps({k: round(v, 5) for k, v in ms.items()})}; plain versions ms "
+            f"{json.dumps({k: round(v, 4) for k, v in plain.items()})}; linearise bound "
+            f"{lin_bound * 1e3:.3f} us (bytes {by * 1e3:.3f} us, FP32 {fp32 * 1e3:.3f} us, "
+            f"special-function {sfu * 1e3:.3f} us); scores bound "
+            f"{max(s_fp32, s_sfu) * 1e3:.3f} us; LM step bound {lm_bound * 1e3:.4f} us; "
+            f"torch.bmm of the plain Jacobians' Gram alone {bmm_ms:.5f} ms")
+    return recs
 
 
 def cpu_covariances(np, torch, kw, params):
@@ -1524,7 +1952,24 @@ def phase_mapping_times(np, torch, sc):
             f"{call:.4f} s per call (median of 3: {[round(t, 4) for t in times]}), "
             f"{bodies[0]} batched LM iterations ({lane_its} lane iterations), "
             f"{call / bodies[0] * 1e3:.3f} ms per batched iteration; per call {launches} kernel "
-            f"launches, {syncs} host syncs, {copies} memcpys, {len(chunks)} done-flag reads")
+            f"launches ({launches / bodies[0]:.2f} per batched iteration, set-up included), "
+            f"{syncs} host syncs, {copies} memcpys, {len(chunks)} done-flag reads (the LM on torch ops "
+            f"made ~606 launches per batched iteration and 37 host syncs per 4-pair call)")
+    # the launches of the LM iterations alone: one chunk of 8 on the 4-pair
+    # batch's maps at stride 4
+    prob, params, lanes = falign_kernel_inputs(np, torch, sc, "photo")
+    st = fsolver.phase_init(prob, params, lanes, 4)
+    fsolver.lm_iterate(prob, st, lanes, 4, 8)
+    chunk_launches, chunk_syncs, _ = profile_counts(
+        torch, lambda: fsolver.lm_iterate(prob, st, lanes, 4, 8))
+    out["lm_chunk"] = dict(iterations=8, launches=chunk_launches, syncs=chunk_syncs,
+                           per_iter=chunk_launches / 8)
+    log(f"[times] falign LM: a chunk of 8 batched iterations (4 lanes, stride 4) makes "
+        f"{chunk_launches} kernel launches, {chunk_launches / 8:.3f} per iteration (on torch ops: ~606), "
+        f"and {chunk_syncs} syncs, the profile's own closing synchronize included")
+    if chunk_launches / 8 > 10 or out[4]["syncs"] > 37:
+        raise AssertionError(f"falign: {chunk_launches / 8} launches per LM iteration (limit 10) "
+                             f"or {out[4]['syncs']} host syncs per 4-pair call (limit 37)")
     for n in (60, 600):
         g = circle_graph(np, torch, n, seed=n)
         prob, _, _ = pgo_solver.build_problem(g[0], None, g[1], g[2], g[3], False,
@@ -1742,9 +2187,12 @@ def phase_full_slam(np, torch, sc):
         f"{st['rejected_cv']}, by covariance rank {st['rejected_rank']}; edges {st['edges']}; PGO "
         f"solves (fid_start, n_frames, n_edges, solve_s) {st['pgo']}; falign calls "
         f"{st['falign_calls']}; EM iterations {st['em_iters']}, cost kernel launches "
-        f"{counts['cost']} ({counts['score']} in score mode), fb_smooth launches {counts['fb']}")
+        f"{counts['cost']} ({counts['score']} in score mode), fb_smooth launches {counts['fb']}; "
+        f"falign kernels: linearise {counts['linearize']} (reduce {counts['reduce']}), LM "
+        f"propose {counts['lm_propose']}, accept {counts['lm_accept']}")
     log(f"[slam-full-mono] Sim3 ATE {ate:.6f} vs gate {0.02 * extent:.6f} (extent {extent:.4f})")
     check_counts("slam-full-mono", counts, st["em_iters"])
+    check_falign_counts("slam-full-mono", counts)
     if not ate < 0.02 * extent:
         raise AssertionError("slam-full-mono: trajectory fails the Sim3-ATE gate")
 
@@ -1793,9 +2241,10 @@ CLI_H, CLI_W, CLI_F = 370, 1226, 700.0  # KITTI's input size, a focal length at 
 CLI_CHILD = (
     "import json, runpy\n"
     "runpy.run_module('voldor_tpu_torch.demo', run_name='__main__', alter_sys=True)\n"
-    "from voldor_tpu_torch.ops import cost, fb_smooth\n"
+    "from voldor_tpu_torch.ops import cost, falign_kernels, fb_smooth\n"
     "print('[cli-counts] ' + json.dumps(dict(cost=cost.cost_kernel_launches, "
-    "score=cost.cost_score_launches, fb=fb_smooth.fb_smooth_kernel_launches)))\n"
+    "score=cost.cost_score_launches, fb=fb_smooth.fb_smooth_kernel_launches, "
+    "**falign_kernels.read_counts())))\n"
 )
 
 
@@ -1893,7 +2342,9 @@ def phase_cli(np, torch):
             f"load_map poses equal to the pose file {same}; metrics events {kinds}, loop-closure "
             f"candidates {cands}, LC links {lc}; "
             f"cost kernel launches {counts['cost']} ({counts['score']} in score mode), fb_smooth "
-            f"{counts['fb']}; the child's flow loader took the native prefetcher {native}; "
+            f"{counts['fb']}, falign linearise / reduce / propose / accept {counts['linearize']} / "
+            f"{counts['reduce']} / {counts['lm_propose']} / {counts['lm_accept']}; the child's flow "
+            f"loader took the native prefetcher {native}; "
             f"reading the {SLAM_E2E_FLOWS} .flo files at {CLI_W}x{CLI_H} here: {json.dumps(loader)}")
         if not native:
             raise AssertionError("the demo CLI's flow loader did not take the native prefetcher")
@@ -1905,6 +2356,7 @@ def phase_cli(np, torch):
             raise AssertionError("load_map does not give the poses the CLI saved")
         if counts["cost"] < 1 or counts["fb"] < 1:
             raise AssertionError(f"the CLI run did not launch both kernels: {counts}")
+        check_falign_counts("the CLI run", counts)
         return counts, n_frames / dt, ate
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2292,6 +2744,10 @@ def main():
     score_err = phase_score(np, torch, bi)
     accept_frac = phase_accept(np, torch, bi)
     fb_rec, cost_rec = phase_times(np, torch, bi, sass, opt.parent)
+    # the full-SLAM scene of the mapping half (phases 12-16); the falign
+    # kernels' times at its batches' shapes
+    sc = build_slam_scene(np, torch, SLAM_E2E_FLOWS)
+    falign_rec = falign_times(np, torch, sc)
 
     # the slice, counted: every launch from here on is the main path's
     reset_counts()
@@ -2355,8 +2811,8 @@ def main():
 
     # the mapping half: falign and PGO against their CPU runs, their times,
     # then the full SLAM pass (VO + mapping thread) on the bench's scene
-    sc = build_slam_scene(np, torch, SLAM_E2E_FLOWS)
     falign_err = phase_falign(np, torch, sc)
+    fk_err = phase_falign_kernels(np, torch, sc)
     pgo_err = phase_pgo(np, torch)
     mapping_times = phase_mapping_times(np, torch, sc)
     full, fps_full, ate_full = phase_full_slam(np, torch, sc)
@@ -2374,6 +2830,8 @@ def main():
         f"{ref_rec['fast_fps']:.4f} in the same phase; projected cost "
         f"{100.0 * ref_rec['cost_map_share']:.1f}% of a checked oracle pass")
     paths = (win_counts, mono, stereo, full, cli, mscaled, refexact)
+    path_names = ("windows", "slam-mono", "slam-stereo", "slam-full-mono", "cli", "mono-scaled",
+                  "refexact")
     multi, multi_rec = phase_multichip(np, torch, scene, bi)
 
     log(f"[run] {time.perf_counter() - t_run:.1f} s from the device check to here")
@@ -2425,6 +2883,48 @@ def main():
             "library_ms": None,
             "score_ms": cost_rec["score_ms"],
             "ms_by_k": cost_rec["ms_by_k"],
+        },
+        {
+            "name": "falign_linearize",
+            "route": "cuda",
+            "source": "voldor_tpu_torch/csrc/falign_linearize.cu",
+            "replaces": "voldor_tpu/falign/residual.py:207",
+            "launches": sum(c.get("linearize", 0) for c in paths),
+            "reduce_launches": sum(c.get("reduce", 0) for c in paths),
+            "launches_by_path": {n: c.get("linearize", 0) for n, c in zip(path_names, paths)},
+            "max_abs_err": fk_err["blocks_abs"],
+            "max_rel_err": fk_err["blocks"],
+            "ms": falign_rec["photo"]["ms"]["linearize"],
+            "plain_ms": falign_rec["photo"]["plain_ms"]["linearize"],
+            "bound_ms": falign_rec["photo"]["linearize_bound_ms"],
+            "bound_by": falign_rec["photo"]["linearize_bound_by"],
+            "library_ms": None,
+            "reduce_ms": falign_rec["photo"]["ms"]["reduce"],
+            "scores_ms": falign_rec["photo"]["ms"]["scores"],
+            "scores_plain_ms": falign_rec["photo"]["plain_ms"]["scores"],
+            "scores_bound_ms": falign_rec["photo"]["scores_bound_ms"],
+            "bmm_gram_ms": falign_rec["photo"]["bmm_gram_ms"],
+            "lc_stride3": falign_rec["lc"],
+        },
+        {
+            "name": "falign_lm",
+            "route": "cuda",
+            "source": "voldor_tpu_torch/csrc/falign_lm.cu",
+            "replaces": "voldor_tpu/falign/solver.py:184",
+            "launches": sum(c.get("lm_propose", 0) + c.get("lm_accept", 0) for c in paths),
+            "propose_launches": sum(c.get("lm_propose", 0) for c in paths),
+            "accept_launches": sum(c.get("lm_accept", 0) for c in paths),
+            "max_abs_err": fk_err["step_abs"],
+            "max_rel_err": fk_err["step"],
+            "ms": falign_rec["photo"]["ms"]["propose"] + falign_rec["photo"]["ms"]["accept"],
+            "plain_ms": (falign_rec["photo"]["plain_ms"]["propose"]
+                         + falign_rec["photo"]["plain_ms"]["accept"]),
+            "bound_ms": falign_rec["photo"]["lm_bound_ms"],
+            "bound_by": falign_rec["photo"]["lm_bound_by"],
+            "library_ms": None,
+            "propose_ms": falign_rec["photo"]["ms"]["propose"],
+            "accept_ms": falign_rec["photo"]["ms"]["accept"],
+            "launches_per_lm_iteration": mapping_times["lm_chunk"]["per_iter"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -38,13 +38,16 @@ def _problem(maps, pairs, n_frames, fx, fy, cx, cy, vbf, crw, use_photo, dim_mas
     def s(v):
         return torch.tensor(float(v), dtype=torch.float32, device=dev)
 
+    scalars = tuple(float(np.float32(v)) for v in (fx, fy, cx, cy, vbf, crw))
+
     pairs = np.asarray(pairs, np.int64)
     eye = np.eye(n_frames, dtype=np.float32)
     return LaneProblem(
         maps=maps, pairs=torch.as_tensor(pairs, device=dev),
         oh_r=torch.as_tensor(eye[pairs[:, 0]], device=dev),
         oh_t=torch.as_tensor(eye[pairs[:, 1]], device=dev), n_frames=n_frames,
-        intr=(s(fx), s(fy), s(cx), s(cy)), vbf=s(vbf), crw=s(crw), use_photo=use_photo,
+        intr=(s(fx), s(fy), s(cx), s(cy)), vbf=s(vbf), crw=s(crw), scalars=scalars,
+        use_photo=use_photo,
         dim_mask=torch.as_tensor(dim_mask, device=dev), gauge_U=torch.as_tensor(gauge_U, device=dev),
     )
 
@@ -144,8 +147,7 @@ def falign(
     params_t, _, _ = solve_lanes(prob, torch.as_tensor(params0, device=dev),
                                  [(int(stride), MAX_ITERS, CHUNK_FINE)])
     covars_t, _ = pair_covariances(prob, params_t, lanes, int(stride))
-    vis_t, cons_t = align_scores(prob, params_t, lanes,
-                                 torch.tensor(float(consistency_residual_bound), device=dev),
+    vis_t, cons_t = align_scores(prob, params_t, lanes, float(consistency_residual_bound),
                                  int(stride))
     params = params_t[0].cpu().numpy()
     covars9 = covars_t[0].cpu().numpy()
@@ -228,8 +230,7 @@ def falign_pairs(
     params_t, _, iters = solve_lanes(prob, torch.as_tensor(params0, device=dev), phases)
     lanes = torch.arange(P, device=dev)
     covars_t, _ = pair_covariances(prob, params_t, lanes, int(stride))
-    vis_t, cons_t = align_scores(prob, params_t, lanes,
-                                 torch.tensor(float(consistency_residual_bound), device=dev),
+    vis_t, cons_t = align_scores(prob, params_t, lanes, float(consistency_residual_bound),
                                  int(stride))
     params_b, covars_b, vis_b, cons_b = (
         t.cpu().numpy() for t in (params_t, covars_t, vis_t, cons_t))

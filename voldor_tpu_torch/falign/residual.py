@@ -305,3 +305,79 @@ def pair_residual_and_grads(params_ref, params_tar, ref_fid, tar_fid, maps: Fram
     Jr_out = torch.cat([Jc_r, y3, Jc_sr[..., None], Jcr[..., None], Jor[..., None]], dim=-1)
     Jt_out = torch.cat([Jq, -y3, Jst[..., None], Jct[..., None], Jot[..., None]], dim=-1)
     return res, Jr_out, Jt_out
+
+
+# --------------------------------------------------------------------------
+# the plain versions of the linearise kernel (csrc/falign_linearize.cu)
+# --------------------------------------------------------------------------
+
+
+class PairBlocks(NamedTuple):
+    """Per pair evaluation b, the reductions of its residual r and its
+    masked Jacobians Jr, Jt (ref and tar parameters) over the grid: the
+    blocks of the Gram matrix of the 19 columns [r, Jr, Jt]."""
+
+    cost: torch.Tensor  # (B,) 1/2 sum r^2
+    Hrr: torch.Tensor  # (B, 9, 9) Jr^T Jr
+    Hrt: torch.Tensor  # (B, 9, 9) Jr^T Jt
+    Htt: torch.Tensor  # (B, 9, 9) Jt^T Jt
+    gr: torch.Tensor  # (B, 9) Jr^T r
+    gt: torch.Tensor  # (B, 9) Jt^T r
+
+
+def lane_pairs(params, lanes, pairs):
+    """The pair evaluations of lanes: lane l's pair p is evaluation
+    b = l * np + p, its frame j map row ``lanes[l] * N + j``. params (L, N,
+    9), lanes (L,), pairs (np, 2) local frame indices. Returns (ref and tar
+    parameters (B, 9) each, ref and tar map rows (B,) each)."""
+    base = lanes[:, None] * params.shape[1]
+    ref = (base + pairs[None, :, 0]).reshape(-1)
+    tar = (base + pairs[None, :, 1]).reshape(-1)
+    return (params[:, pairs[:, 0]].reshape(-1, 9), params[:, pairs[:, 1]].reshape(-1, 9),
+            ref, tar)
+
+
+def pair_jacobians(params, lanes, pairs, dim_mask, maps: FrameMaps, fx, fy, cx, cy, vbf, crw,
+                   use_photo: bool, stride: int):
+    """Residuals (L, np, m) and the Jacobians w.r.t. ref and tar parameters
+    ((L, np, m, 9) each) of the lanes' pair evaluations, columns masked by
+    the dim mask (N, 9) (``solver.py:67``)."""
+    L, n_p = params.shape[0], pairs.shape[0]
+    pr, pt, ref, tar = lane_pairs(params, lanes, pairs)
+    res, Jr, Jt = pair_residual_and_grads(pr, pt, ref, tar, maps, fx, fy, cx, cy, vbf, crw,
+                                          use_photo, stride)
+    m = res.shape[1] * res.shape[2]
+    mask_r = dim_mask[pairs[:, 0]][None, :, None, :]
+    mask_t = dim_mask[pairs[:, 1]][None, :, None, :]
+    return (res.reshape(L, n_p, m), Jr.reshape(L, n_p, m, 9) * mask_r,
+            Jt.reshape(L, n_p, m, 9) * mask_t)
+
+
+def pair_normal_blocks(params, lanes, pairs, dim_mask, maps: FrameMaps, fx, fy, cx, cy, vbf, crw,
+                       use_photo: bool, stride: int) -> PairBlocks:
+    """The linearise kernel's plain version: per pair evaluation of the
+    lanes, the reductions of ``pair_residual_and_grads`` over the strided
+    grid (PairBlocks, B = L * np)."""
+    res, Jr, Jt = pair_jacobians(params, lanes, pairs, dim_mask, maps, fx, fy, cx, cy, vbf, crw,
+                                 use_photo, stride)
+    B = res.shape[0] * res.shape[1]
+    res, Jr, Jt = res.reshape(B, -1), Jr.reshape(B, -1, 9), Jt.reshape(B, -1, 9)
+    return PairBlocks(
+        cost=0.5 * torch.sum(res * res, dim=1),
+        Hrr=torch.einsum("bki,bkj->bij", Jr, Jr), Hrt=torch.einsum("bki,bkj->bij", Jr, Jt),
+        Htt=torch.einsum("bki,bkj->bij", Jt, Jt),
+        gr=torch.einsum("bki,bk->bi", Jr, res), gt=torch.einsum("bki,bk->bi", Jt, res))
+
+
+def pair_score_sums(params, lanes, pairs, maps: FrameMaps, fx, fy, cx, cy, vbf, crw,
+                    use_photo: bool, stride: int, bound):
+    """The linearise kernel's scores mode, plain: per pair evaluation, over
+    the UNWEIGHTED residual of ``pair_residual_map``, the count of visible
+    pixels and the sum over them of 1 - min(r^2, bound) / bound. Returns
+    two (B,) float tensors."""
+    pr, pt, ref, tar = lane_pairs(params, lanes, pairs)
+    r, v = pair_residual_map(pr, pt, ref, tar, maps, fx, fy, cx, cy, vbf, crw, use_photo, stride,
+                             apply_weights=False)
+    bounded = torch.clamp_max(r * r, bound)
+    return (torch.sum(v, dim=(1, 2)).to(r.dtype),
+            torch.sum(torch.where(v, 1.0 - bounded / bound, 0.0), dim=(1, 2)))

@@ -6,9 +6,12 @@ that share one pair list (local frame indices) and one dim mask. ``falign()``
 is one lane of N frames; ``falign_pairs()`` is P lanes of two frames with
 the pairs (0, 1) and (1, 0). Lane l's frame j is row ``l * N + j`` of the
 FrameMaps. The JAX package vmaps over pairs and runs a ``lax.while_loop``;
-here the batch is an explicit axis and the loop a host loop whose
-converged lanes freeze under ``torch.where`` (``lm_iterate``), with the
-done flags read once per chunk of iterations (``solve_lanes``).
+here the batch is an explicit axis and the loop a host loop of LM
+iterations (``lm_iterate``), each of which advances the lanes that are
+live and not out of budget and freezes the others: on the card three
+kernel launches (``ops/falign_kernels.py``: propose, linearise, accept), on
+the CPU their plain versions. The done flags are read once per chunk of
+iterations (``solve_lanes``).
 
 The Jacobian is taken w.r.t. BOTH frames of every pair (the analytic chain
 rule of ``residual.pair_residual_and_grads``; forward mode through
@@ -24,8 +27,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from voldor_tpu_torch.falign.residual import (FrameMaps, pair_residual_and_grads,
+from voldor_tpu_torch.falign.residual import (FrameMaps, lane_pairs, pair_jacobians,
                                               pair_residual_map)
+from voldor_tpu_torch.ops import falign_kernels as fk
 
 
 class LaneProblem(NamedTuple):
@@ -39,6 +43,7 @@ class LaneProblem(NamedTuple):
     intr: tuple  # (fx, fy, cx, cy) 0-d tensors
     vbf: torch.Tensor
     crw: torch.Tensor
+    scalars: tuple  # (fx, fy, cx, cy, vbf, crw) as Python floats, for the kernels
     use_photo: bool
     dim_mask: torch.Tensor  # (N, 9)
     gauge_U: torch.Tensor  # (K, N * 9) scale-gauge indicator rows
@@ -59,30 +64,12 @@ class PairLmState(NamedTuple):
     w2: torch.Tensor  # (L,) gauge weight (0 = derive from the next Hessian)
 
 
-def _pair_rows(prob: LaneProblem, lanes):
-    """(L * np,) ref and tar map rows of the pair evaluations of lanes."""
-    base = lanes[:, None] * prob.n_frames
-    return (base + prob.pairs[None, :, 0]).reshape(-1), (base + prob.pairs[None, :, 1]).reshape(-1)
-
-
-def _pair_params(prob: LaneProblem, params):
-    """(L * np, 9) ref and tar parameters of each lane's pairs."""
-    return params[:, prob.pairs[:, 0]].reshape(-1, 9), params[:, prob.pairs[:, 1]].reshape(-1, 9)
-
-
 def _pair_res_and_jacs(prob: LaneProblem, params, lanes, stride: int):
     """Residuals (L, np, m) and Jacobians w.r.t. ref and tar parameters
-    ((L, np, m, 9) each), columns masked by the dim mask (``solver.py:67``)."""
-    L, n_p = params.shape[0], prob.pairs.shape[0]
-    ref, tar = _pair_rows(prob, lanes)
-    pr, pt = _pair_params(prob, params)
-    res, Jr, Jt = pair_residual_and_grads(pr, pt, ref, tar, prob.maps, *prob.intr, prob.vbf,
-                                          prob.crw, prob.use_photo, stride)
-    m = res.shape[1] * res.shape[2]
-    mask_r = prob.dim_mask[prob.pairs[:, 0]][None, :, None, :]
-    mask_t = prob.dim_mask[prob.pairs[:, 1]][None, :, None, :]
-    return (res.reshape(L, n_p, m), Jr.reshape(L, n_p, m, 9) * mask_r,
-            Jt.reshape(L, n_p, m, 9) * mask_t)
+    ((L, np, m, 9) each), columns masked by the dim mask (``solver.py:67``).
+    The per-pixel oracle of the linearise kernel's blocks; test use."""
+    return pair_jacobians(params, lanes, prob.pairs, prob.dim_mask, prob.maps, *prob.intr,
+                          prob.vbf, prob.crw, prob.use_photo, stride)
 
 
 def _pair_res_and_jacs_ad(prob: LaneProblem, params, lanes, stride: int):
@@ -90,8 +77,7 @@ def _pair_res_and_jacs_ad(prob: LaneProblem, params, lanes, stride: int):
     Jacobian of pair_residual_map over each pair's 18 parameters by
     ``torch.func.jacfwd``, one pair at a time. Test use only."""
     L, n_p = params.shape[0], prob.pairs.shape[0]
-    ref, tar = _pair_rows(prob, lanes)
-    pr, pt = _pair_params(prob, params)
+    pr, pt, ref, tar = lane_pairs(params, lanes, prob.pairs)
     out_r, out_jr, out_jt = [], [], []
     for b in range(ref.shape[0]):
         def f18(p18, b=b):
@@ -116,7 +102,8 @@ def _pair_res_and_jacs_ad(prob: LaneProblem, params, lanes, stride: int):
 def _joint_normal_eq(res, Jr, Jt, oh_r, oh_t):
     """Per lane, the full (N*9, N*9) JtJ and (N*9,) gradient from the
     per-pair Jacobians (``solver.py:237``); oh_r / oh_t (np, N) one-hot
-    the pairs' frames."""
+    the pairs' frames. The per-pixel oracle of the LM path's normal
+    equations; test use."""
     L, n_frames = res.shape[0], oh_r.shape[1]
     Hrr = torch.einsum("lpki,lpkj->lpij", Jr, Jr)
     Hrt = torch.einsum("lpki,lpkj->lpij", Jr, Jt)
@@ -132,74 +119,21 @@ def _joint_normal_eq(res, Jr, Jt, oh_r, oh_t):
 
 
 def linearize(prob: LaneProblem, params, lanes, stride: int):
-    """(cost, H, g) per lane at params: one residual + Jacobian sweep."""
-    res, Jr, Jt = _pair_res_and_jacs(prob, params, lanes, stride)
-    H, g = _joint_normal_eq(res, Jr, Jt, prob.oh_r, prob.oh_t)
-    return 0.5 * torch.sum(res * res, dim=(1, 2)), H, g
+    """(cost, H, g) per lane at params: one residual + Jacobian sweep, its
+    per-pair blocks assembled per lane."""
+    return fk.assemble(fk.linearize(prob, params, lanes, stride), prob.oh_r, prob.oh_t)
 
 
-def _diag_embed_eye(L: int, D: int, like):
-    return torch.eye(D, dtype=like.dtype, device=like.device).expand(L, D, D)
-
-
-def lm_body(prob: LaneProblem, st: PairLmState, lanes, stride: int) -> PairLmState:
-    """One damped-LM iteration of every lane (``solver.py:184``): solve the
-    damped, gauge-regularised carried system, linearize at the trial point,
-    accept or reject, adapt the damping by the gain ratio and test the
-    stopping rules. Returns the advanced state of every lane; the caller
-    freezes the lanes that were not active."""
-    U = prob.gauge_U
-    L, N = st.params.shape[0], prob.n_frames
-    D = N * 9
-    inactive = (1.0 - prob.dim_mask).reshape(-1)
-    n_scale = torch.clamp_min(torch.sum(U), 1.0)
-    u_any = torch.sum(U, dim=0)
-
-    def gauge_cost(w2, params):
-        s_sums = params.reshape(L, D) @ U.T
-        return 0.5 * w2 * torch.sum(s_sums * s_sums, dim=-1)
-
-    params, lam, cost, H, g = st.params, st.lam, st.cost, st.H, st.g
-    w2 = torch.where(st.w2 > 0, st.w2,
-                     torch.sum(torch.diagonal(H, dim1=-2, dim2=-1) * u_any, dim=-1) / n_scale)
-    s_sums = params.reshape(L, D) @ U.T
-    Hg = H + w2[:, None, None] * (U.T @ U)
-    gg = g + w2[:, None] * (s_sums @ U)
-    diag = torch.clamp_min(torch.diagonal(Hg, dim1=-2, dim2=-1), 1e-8)
-    damped = Hg + torch.diag_embed(lam[:, None] * diag + inactive)
-
-    Lc, info = torch.linalg.cholesky_ex(damped)
-    ok = (info == 0) & torch.isfinite(Lc).all(dim=(-2, -1))
-    Lsafe = torch.where(ok[:, None, None], Lc, _diag_embed_eye(L, D, Lc))
-    # two triangular solves: a batched cholesky_solve syncs with the host on
-    # a card (tools/profile_torch_mapping.py)
-    half = torch.linalg.solve_triangular(Lsafe, gg[..., None], upper=False)
-    step = torch.linalg.solve_triangular(Lsafe.transpose(-1, -2), half, upper=True)[..., 0]
-    step_m = step.reshape(L, N, 9) * prob.dim_mask
-    trial = params - step_m
-    trial_cost, H_t, g_t = linearize(prob, trial, lanes, stride)
-    new_cost = trial_cost + gauge_cost(w2, trial)
-    cur_cost = cost + gauge_cost(w2, params)
-    accept = ok & torch.isfinite(new_cost) & (new_cost < cur_cost)
-    # gain-ratio (Nielsen) damping; a reject multiplies by 4
-    sm = step_m.reshape(L, D)
-    pred = 0.5 * (torch.sum(sm * (lam[:, None] * diag * sm), dim=-1) + torch.sum(sm * gg, dim=-1))
-    rho = (cur_cost - new_cost) / torch.clamp_min(pred, 1e-30)
-    dec = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0, 1.0)
-    lam = torch.where(accept, torch.clamp_min(lam * dec, 1e-7), lam * 4.0)
-    rel_drop = (cur_cost - new_cost) / torch.clamp_min(cur_cost, 1e-30)
-    # stopping: cost plateau, a negligible step on accept or reject, or a
-    # damping blow-up (solver.py:214-227)
-    step_inf = torch.amax(torch.abs(step_m), dim=(1, 2))
-    done = ((accept & (rel_drop < 1e-5)) | (accept & (step_inf < 1e-4))
-            | ((~accept) & (step_inf < 3e-5)) | (lam > 1e6))
-    a3 = accept[:, None, None]
-    return PairLmState(
-        params=torch.where(a3, trial, params), lam=lam,
-        cost=torch.where(accept, trial_cost, cost),
-        H=torch.where(a3, H_t, H), g=torch.where(accept[:, None], g_t, g),
-        it=st.it + 1, done=done, w2=w2,
-    )
+def lm_body(prob: LaneProblem, st: PairLmState, lanes, stride: int, it_end=None) -> PairLmState:
+    """One damped-LM iteration (``solver.py:184``) of every lane whose
+    it < it_end (default: one more) and that is not done: solve the damped,
+    gauge-regularised carried system, linearize at the trial point, accept
+    or reject, adapt the damping by the gain ratio and test the stopping
+    rules. The other lanes keep their state. On the card: the three kernels
+    of ops/falign_kernels.py, no host read."""
+    if it_end is None:
+        it_end = st.it + 1
+    return fk.lm_iteration(prob, st, lanes, stride, it_end)
 
 
 def lm_iterate(prob: LaneProblem, st: PairLmState, lanes, stride: int, n_iters: int) -> PairLmState:
@@ -208,11 +142,7 @@ def lm_iterate(prob: LaneProblem, st: PairLmState, lanes, stride: int, n_iters: 
     keep their state (the vmapped ``lax.while_loop`` of ``solver.py:424-441``)."""
     it_end = st.it + n_iters
     for _ in range(n_iters):
-        active = (st.it < it_end) & ~st.done
-        new = lm_body(prob, st, lanes, stride)
-        st = PairLmState(*(
-            torch.where(active.reshape((-1,) + (1,) * (a.dim() - 1)), b, a)
-            for a, b in zip(st, new)))
+        st = lm_body(prob, st, lanes, stride, it_end)
     return st
 
 
@@ -284,33 +214,27 @@ def solve_lanes(prob: LaneProblem, params0, phases):
 
 def pair_covariances(prob: LaneProblem, params, lanes, stride: int):
     """Per-frame covariance blocks at the optimum from the ref-side
-    Jacobians (``solver.py:367``). Returns (covars (L, N, 9, 9), zeros where
-    unreliable; ok (L, N))."""
-    res, Jr, _ = _pair_res_and_jacs(prob, params, lanes, stride)
-    L, N = params.shape[0], prob.n_frames
-    JtJ_p = torch.einsum("lpki,lpkj->lpij", Jr, Jr)
+    Jacobians (``solver.py:367``): JrT Jr is the linearisation's Hrr block.
+    Returns (covars (L, N, 9, 9), zeros where unreliable; ok (L, N))."""
+    L, N, n_p = params.shape[0], prob.n_frames, prob.pairs.shape[0]
+    JtJ_p = fk.linearize(prob, params, lanes, stride).Hrr.reshape(L, n_p, 9, 9)
     JtJ = torch.einsum("pn,lpij->lnij", prob.oh_r, JtJ_p)
     JtJ_solve = JtJ + torch.diag_embed(1.0 - prob.dim_mask)
     Lc, info = torch.linalg.cholesky_ex(JtJ_solve)
     ok = (info == 0) & torch.isfinite(Lc).all(dim=(-2, -1))
-    eye = torch.eye(9, dtype=res.dtype, device=res.device).expand(L, N, 9, 9)
+    eye = torch.eye(9, dtype=params.dtype, device=params.device).expand(L, N, 9, 9)
     Lsafe = torch.where(ok[..., None, None], Lc, eye)
     covars = torch.cholesky_solve(eye, Lsafe)
     return torch.where(ok[..., None, None], covars, 0.0), ok
 
 
-def align_scores(prob: LaneProblem, params, lanes, bound, stride: int):
+def align_scores(prob: LaneProblem, params, lanes, bound: float, stride: int):
     """Per pair (visibility, consistency) over the unweighted residual at
-    the problem's stride (``solver.py:510``). Returns two (L, np) tensors."""
+    the problem's stride (``solver.py:510``), from the linearise kernel's
+    scores mode. Returns two (L, np) tensors."""
     L, n_p = params.shape[0], prob.pairs.shape[0]
-    ref, tar = _pair_rows(prob, lanes)
-    pr, pt = _pair_params(prob, params)
-    r, v = pair_residual_map(pr, pt, ref, tar, prob.maps, *prob.intr, prob.vbf, prob.crw,
-                             prob.use_photo, stride, apply_weights=False)
-    n_total = r.shape[1] * r.shape[2]
-    n_vis = torch.sum(v, dim=(1, 2))
-    bounded = torch.clamp_max(r * r, bound)
-    consistency = (torch.sum(torch.where(v, 1.0 - bounded / bound, 0.0), dim=(1, 2))
-                   / torch.clamp_min(n_vis, 1))
-    visibility = n_vis / n_total
+    hs, ws = fk.grid_size(*prob.maps.bounds, stride)
+    n_vis, cons = fk.score_sums(prob, params, lanes, stride, bound)
+    consistency = cons / torch.clamp_min(n_vis, 1)
+    visibility = n_vis / (hs * ws)
     return visibility.reshape(L, n_p), consistency.reshape(L, n_p)
