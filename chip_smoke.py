@@ -44,13 +44,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward and one backward step, timed on one thread, times h + w), the
    chunked design's chain floor (compositions and steps per line pass,
    each timed on one thread) and, with --parent, the other checkout's
-   kernel; then, on the full-SLAM scene of phase 12, the four falign
-   kernel launches (linearise, its scores mode, the reduce pass, LM
-   propose and accept) at the 4-pair photometric batch (stride 4) and the
-   loop-closure batch (stride 3), beside their plain versions and bounds
-   (the linearise kernel's bytes sector by sector, its operations counted
-   from its plain formula, FALIGN_PX), and one torch.bmm of the plain
-   Jacobians' Gram matrices as a yardstick;
+   kernel; then, on the full-SLAM scene of phase 12, the falign kernels at
+   the 4-pair photometric batch (stride 4) and the loop-closure batch
+   (stride 3): the one-shot linearise launch and its scores mode, and the
+   LM chunk kernel over a chunk of 8 from the phase start (per launch and
+   per batched iteration, clusters of 8 and of 16 blocks), beside their
+   plain versions and bounds (the linearise kernel's bytes sector by
+   sector, its operations counted from its plain formula, FALIGN_PX; the
+   chunk's chain floor, each piece timed by falign_chain_probe_kernel), and
+   two yardsticks the port never calls: one torch.bmm of the plain
+   Jacobians' Gram matrices, and torch.linalg.cholesky_ex +
+   torch.cholesky_solve on the lanes' damped 18 x 18 systems;
 7. the VO windows: three consecutive 5-flow mono VO windows of the bench
    scene (613x185, seed 7) through voldor_tpu_torch's VO entry point on the
    card, with 0, 1 and 2 depth priors and the SLAM layer's constant-velocity
@@ -93,23 +97,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the geo, photo and lc batches at strides 3, 4 and 6: the linearise
    kernel's per-pair blocks within FALIGN_BLOCK_RTOL of each block's
    largest entry, its scores mode's visible pixels equal, two launches
-   bitwise equal; one LM step, a second, rejected steps, a failed
-   Cholesky factor and frozen lanes through propose and accept against
-   the plain versions fed the same proposal: the step within
-   FALIGN_STEP_RTOL, the next state within FALIGN_BLOCK_RTOL, iteration
-   counts and done flags equal), a chunk of LM iterations twice (bitwise
-   equal) and under set_sync_debug_mode("error"), and wrong inputs
-   refused (a CPU tensor, wrong shapes and types, a lane too large for
-   shared memory);
+   bitwise equal; the LM chunk kernel against the plain chunk from the
+   same state, one step, a second, a chunk of 8, rejected steps, a failed
+   Cholesky factor, frozen lanes, and falign() lanes of three frames
+   without gauge rows (the warp factor at D = 27), four frames and twenty
+   frames (the block-wide factor): the parameters within FALIGN_STEP_RTOL
+   of the largest move, the rest of the state within FALIGN_BLOCK_RTOL,
+   iteration counts and done flags equal; every step's backward error
+   against its system, in float64, within D 2^-24), a chunk of 8 bitwise
+   equal to eight chunks of one,
+   a chunk twice (bitwise equal) and under set_sync_debug_mode("error"),
+   and wrong inputs refused (a CPU tensor, wrong shapes and types, a lane
+   too large for shared memory, a cluster the device cannot hold);
 13. PGO: drifted circle graphs with loop edges at 60 and 600 poses through
    pgo() (dense), pgo(reduce_threshold_dofs=0) (chain reduction) and
    pgo_solve_jit (matrix-free CG), on the card and on the CPU: poses within
    PGO_POSE_TOL;
 14. mapping times: falign_pairs per call and per batched LM iteration at 4
    and 16 pairs with its kernel launches and host syncs (torch.profiler),
-   the launches of one chunk of 8 LM iterations alone (at most 10 per
-   iteration, and at most 37 host syncs per 4-pair call), PGO dense and CG
-   per solve at 60 and 600 poses;
+   the 4-pair call split into set-up (maps, phase starts), chunks and
+   finish (synchronised timers), the launches of one chunk of 8 LM
+   iterations alone (at most one per iteration, and at most 37 host syncs
+   per 4-pair call), PGO dense and CG per solve at 60 and 600 poses;
 15. slam-full-mono: the full-SLAM scene through VOLDOR_SLAM(mode="mono",
    device="cuda") configured exactly as bench.py:_make_slam_e2e, with
    enable_loop_closure() (the built-in vocabulary), vo_thread and
@@ -328,8 +337,11 @@ def short_name(mangled):
     m = re.search(r"cost_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return f"cost_kernel<KT={m.group(1)}, {'accept' if m.group(2) == '1' else 'score'}>"
-    m = re.search(r"(fb_rows_kernel|fb_cols_kernel|fb_chain_probe_kernel|fb_combine_probe_kernel)",
-                  mangled)
+    m = re.search(r"falign_linearize_kernelILb([01])E", mangled)
+    if m:
+        return f"falign_linearize_kernel<{'scores' if m.group(1) == '1' else 'grads'}>"
+    m = re.search(r"(fb_rows_kernel|fb_cols_kernel|fb_chain_probe_kernel|fb_combine_probe_kernel|"
+                  r"falign_lm_chunk_kernel|falign_chain_probe_kernel)", mangled)
     return m.group(1) if m else mangled
 
 
@@ -919,7 +931,8 @@ def reset_counts():
 
 def read_counts():
     """Launches since reset_counts: the cost kernel (score mode apart), fb_smooth,
-    and the falign kernels (linearize, reduce, lm_propose, lm_accept)."""
+    and the falign kernels (linearize: the one-shot linearise and scores
+    launches; lm_chunk: the LM chunks)."""
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import falign_kernels as fk
     from voldor_tpu_torch.ops import fb_smooth as fb
@@ -938,7 +951,7 @@ def check_counts(what, counts, em_iters):
 
 def check_falign_counts(what, counts):
     """The mapping half ran on the falign kernels: every one was launched."""
-    missing = [k for k in ("linearize", "reduce", "lm_propose", "lm_accept") if counts[k] < 1]
+    missing = [k for k in ("linearize", "lm_chunk") if counts[k] < 1]
     if missing:
         raise AssertionError(f"{what}: falign kernels never launched: {missing}")
 
@@ -1326,26 +1339,28 @@ def phase_falign(np, torch, sc):
             and bool(torch.isnan(plain[1])) and bool(torch.isfinite(plain[0]))):
         raise AssertionError("bilinear sampling at a NaN coordinate is not NaN on the card")
 
-    real_body = fsolver.lm_body
+    real_iterate = fsolver.lm_iterate
     off_card = []
 
-    def checked_body(prob, st, lanes, stride, *a, **k):
-        for name, t in list(prob.maps._asdict().items()) + list(st._asdict().items()):
+    def checked_iterate(prob, st, lanes, stride, *a, **k):
+        out = real_iterate(prob, st, lanes, stride, *a, **k)
+        for name, t in (list(prob.maps._asdict().items()) + list(st._asdict().items())
+                        + [("out." + n, v) for n, v in out._asdict().items()]):
             if t.device.type != "cuda":
                 off_card.append(name)
-        return real_body(prob, st, lanes, stride, *a, **k)
+        return out
 
     worst = dict(scale=0.0, score=0.0, cov=0.0)
     failed = []
     cov_failed = []
     for kind in ("geo", "photo", "lc"):
         solved = []
-        fsolver.lm_body = checked_body
+        fsolver.lm_iterate = checked_iterate
         try:
             with spying(falign_api, "solve_lanes", solved):
                 pairs, kw, card = falign_run(np, torch, sc, kind, "cuda")
         finally:
-            fsolver.lm_body = real_body
+            fsolver.lm_iterate = real_iterate
         _, _, cpu = falign_run(np, torch, sc, kind, "cpu")
         if off_card:
             raise AssertionError(f"falign solver tensors off the card: {sorted(set(off_card))}")
@@ -1474,16 +1489,6 @@ def block_errs(kern, plain):
     return {name: rel_err(getattr(kern, name), getattr(plain, name)) for name in plain._fields}
 
 
-def state_errs(torch, a, b):
-    """Kernel state a against plain state b: exact flags, relative values."""
-    out = {k: bool(torch.equal(getattr(a, k), getattr(b, k))) for k in ("it", "done")}
-    for k in ("params", "lam", "cost", "w2"):
-        out[k] = rel_err(getattr(a, k)[:, None], getattr(b, k)[:, None])
-    for k in ("H", "g"):
-        out[k] = rel_err(getattr(a, k), getattr(b, k))
-    return out
-
-
 def expect_refused(exc, fn, what):
     try:
         fn()
@@ -1493,68 +1498,276 @@ def expect_refused(exc, fn, what):
     raise AssertionError(f"falign kernels: {what} was not refused")
 
 
-def lm_case(np, torch, prob, st, lanes, stride, it_end, what):
-    """One LM iteration from st through the kernels and through the plain
-    versions fed the kernel's proposal. Returns the readings; raises where
-    they disagree beyond the tolerances."""
+def damped_system(torch, prob, st, dtype):
+    """Every lane's damped, gauge-regularised system from st, as
+    lm_propose_reference builds it, in dtype: (A (L, D, D), b (L, D))."""
+    L = st.params.shape[0]
+    U, mask = prob.gauge_U.to(dtype), prob.dim_mask.to(dtype)
+    H, g, p = st.H.to(dtype), st.g.to(dtype), st.params.to(dtype).reshape(L, -1)
+    w2 = torch.where(st.w2 > 0, st.w2.to(dtype),
+                     torch.sum(torch.diagonal(H, dim1=-2, dim2=-1) * torch.sum(U, dim=0), dim=-1)
+                     / torch.clamp_min(torch.sum(U), 1.0))
+    Hg = H + w2[:, None, None] * (U.T @ U)
+    gg = g + w2[:, None] * ((p @ U.T) @ U)
+    diag = torch.clamp_min(torch.diagonal(Hg, dim1=-2, dim2=-1), 1e-8)
+    return Hg + torch.diag_embed(st.lam.to(dtype)[:, None] * diag + (1.0 - mask).reshape(-1)), gg
+
+
+def solve_damped(torch, prob, st, dtype):
+    """Every lane's step from st: damped_system solved the way
+    lm_propose_reference solves it (cholesky_ex, the identity where the
+    factor fails, two triangular solves), in dtype. Returns (the masked
+    step (L, N, 9), whether the factor succeeded (L,))."""
+    L, N = st.params.shape[0], prob.n_frames
+    A, b = damped_system(torch, prob, st, dtype)
+    Lc, info = torch.linalg.cholesky_ex(A)
+    ok = (info == 0) & torch.isfinite(Lc).all(dim=(-2, -1))
+    Lc = torch.where(ok[:, None, None], Lc, torch.eye(9 * N, dtype=dtype, device=Lc.device))
+    half = torch.linalg.solve_triangular(Lc, b[..., None], upper=False)
+    step = torch.linalg.solve_triangular(Lc.transpose(-1, -2), half, upper=True)[..., 0]
+    return step.reshape(L, N, 9) * prob.dim_mask.to(dtype), ok
+
+
+def backward_error(A, b, x):
+    """Per lane, the normwise backward error of x as a solution of A x = b,
+    in float64: |b - A x| / (|A| |x| + |b|), infinity norms."""
+    A, b, x = A.double(), b.double(), x.double().reshape(b.shape)
+    r = b - (A @ x[..., None])[..., 0]
+    den = A.abs().sum(dim=2).amax(dim=1) * x.abs().amax(dim=1) + b.abs().amax(dim=1)
+    return r.abs().amax(dim=1) / den.clamp_min(1e-300)
+
+
+def kernel_iteration(torch, prob, st, lanes, stride):
+    """One LM iteration by the chunk kernel (lm_chunk with n = 1), launched
+    once more through its C entry point with the step output (the same
+    launch: the same state, bitwise). Returns (the state, each lane's
+    masked step (L, N, 9), NaN where the lane did not run)."""
     from voldor_tpu_torch.ops import falign_kernels as fk
 
-    pk = fk.lm_propose(prob, st, it_end)
-    pp = fk.lm_propose_reference(prob, st, it_end)
-    step_k, step_p = st.params - pk.trial, st.params - pp.trial
-    act = pp.active.bool()
-    rec = dict(active=pp.active.tolist(), ok=pp.info[:, 4].tolist())
-    rec["flags_equal"] = bool(torch.equal(pk.active, pp.active)
-                              and torch.equal(pk.info[:, 4:6], pp.info[:, 4:6]))
-    rec["step"] = rel_err(step_k[act], step_p[act]) if bool(act.any()) else 0.0
-    rec["step_abs"] = float((step_k - step_p).abs().max())
-    rec["info"] = {k: rel_err(pk.info[act, i:i + 1], pp.info[act, i:i + 1]) if bool(act.any())
-                   else 0.0 for i, k in enumerate(fk.INFO[:4])}
-    part = fk.linearize_partials(prob, pk.trial, lanes, stride, active=pk.active)
-    sk = fk.lm_accept(prob, st, pk, part)
-    sp = fk.lm_accept_reference(prob, st, pk, plain_blocks(prob, pk.trial, lanes, stride))
-    rec["state"] = state_errs(torch, sk, sp)
-    rec["accepted"] = (sp.cost != st.cost).tolist()
-    # w2 and the current cost come from the carried state; the predicted drop
-    # and the largest step entry from the step
-    bad = (not rec["flags_equal"] or rec["step"] > FALIGN_STEP_RTOL
-           or max(rec["info"]["w2"], rec["info"]["cur_cost"]) > FALIGN_BLOCK_RTOL
-           or max(rec["info"]["pred"], rec["info"]["step_inf"]) > FALIGN_STEP_RTOL
-           or not (rec["state"]["it"] and rec["state"]["done"])
-           or max(rec["state"][k] for k in ("params", "lam", "cost", "w2", "H", "g"))
-           > FALIGN_BLOCK_RTOL)
-    log(f"[falign-kernels] LM {what}: {json.dumps(rec)}")
+    out, (fn, args) = captured_call(lambda: fk.lm_chunk(prob, st, lanes, stride, 1),
+                                    "falign_lm_chunk_launch")
+    L, N = st.params.shape[:2]
+    step = torch.full(st.params.shape, math.nan, device=st.params.device)
+    # the wrapper's work buffer (D > 32) went with its call: a live one
+    work = torch.empty((L, 9 * N, 9 * N), device=st.params.device) if 9 * N > 32 else None
+    checked(fn(*args[:-5], None if work is None else work.data_ptr(), step.data_ptr(),
+               *args[-3:]), "chunk with its step")
+    return out, step
+
+
+# Every step the kernel takes is held to the float32 system it solved by its
+# backward error, measured in float64 (backward_error): at most D u, u =
+# 2^-24, the classical bound of a Cholesky solve of a D x D system. A fault
+# in the factor or the solves leaves a residual of the order of the step;
+# conditioning does not move the backward error. It moves the forward
+# error: on the geo batch's systems (condition numbers ~3e8) two float32
+# solves, the kernel's and torch's, each lie up to ~10x further from the
+# float64 solve than the other, lane by lane; both distances are printed.
+# Where the float32 factor fails, the kernel's step (the identity's) is
+# held within FALIGN_STEP_RTOL of the float64 reference's.
+FALIGN_ETA_U = 2.0 ** -24
+
+
+def step_errs(torch, prob, lanes, stride, st, a, b, step_a, blocks=None):
+    """One LM iteration from st, by the kernel (a, its step step_a) and by
+    the plain iteration (b): iteration counts and done flags equal, the
+    steps taken by the same lanes, and the kernel's state moved by its
+    step; per lane the parameters' largest difference relative to the
+    plain step's largest move; each lane's step against the float32
+    system it solved, by its backward error in float64 (step_eta; over its
+    bound, step_eta_excess, at most 1), and the kernel's and the plain
+    float32 solve's distances from the float64 solve relative to its
+    largest entry (step64_lanes: per lane the two distances, then the two
+    backward errors); lam and w2
+    relative to the plain step's; the carried cost, H and g against the
+    plain linearisation at the kernel's own parameters (the state's normal
+    equations are those at its params), relative to each lane's largest
+    entry (or against `blocks`, a linearisation function other than the
+    plain one)."""
+    from voldor_tpu_torch.ops import falign_kernels as fk
+
+    out = {k: bool(torch.equal(getattr(a, k), getattr(b, k))) for k in ("it", "done")}
+    acc_k = (a.params != st.params).flatten(1).any(dim=1)
+    acc_p = (b.params != st.params).flatten(1).any(dim=1)
+    moved = bool(torch.equal(a.params[acc_k], (st.params - step_a)[acc_k]))
+    out["it"] = out["it"] and bool(torch.equal(acc_k, acc_p)) and moved  # the same steps taken
+    move = (b.params - st.params).abs().amax(dim=(1, 2)).clamp_min(1e-30)
+    out["step"] = float(((a.params - b.params).abs().amax(dim=(1, 2)) / move).max())
+    out["step_abs"] = float((a.params - b.params).abs().max())
+    ran = ~st.done
+    s64, _ = solve_damped(torch, prob, st, torch.float64)
+    s32, ok = solve_damped(torch, prob, st, torch.float32)
+    scale = s64.abs().amax(dim=(1, 2)).clamp_min(1e-30)
+    dk = (step_a.double() - s64).abs().amax(dim=(1, 2)) / scale
+    dp = (s32.double() - s64).abs().amax(dim=(1, 2)) / scale
+    A, rhs = damped_system(torch, prob, st, torch.float32)
+    ek, ep = backward_error(A, rhs, step_a), backward_error(A, rhs, s32)
+    D = 9 * prob.n_frames
+    excess = torch.where(ok, ek / (D * FALIGN_ETA_U), dk / FALIGN_STEP_RTOL)
+    for k, v in (("step_eta", ek), ("step_eta_f32", ep), ("step_eta_excess", excess),
+                 ("step64", dk), ("step64_f32", dp)):
+        out[k] = float(v[ran].max()) if bool(ran.any()) else 0.0
+    out["step64_lanes"] = [[float(f"{v:.3e}") for v in vals] for vals in zip(
+        *(t[ran].tolist() for t in (dk, dp, ek, ep)))]
+    for k in ("lam", "w2"):
+        out[k] = rel_err(getattr(a, k)[:, None], getattr(b, k)[:, None])
+    # a lane that took its step carries the linearisation at its new
+    # parameters; one that did not keeps its state bitwise
+    cost, Hp, gp = fk.assemble((blocks or plain_blocks)(prob, a.params, lanes, stride),
+                               prob.oh_r, prob.oh_t)
+    for k, ref in (("cost", cost), ("H", Hp), ("g", gp)):
+        got, old = getattr(a, k), getattr(st, k)
+        if k == "cost":
+            got, old, ref = got[:, None], old[:, None], ref[:, None]
+        kept = bool(torch.equal(got[~acc_k], old[~acc_k]))
+        out[k] = (rel_err(got[acc_k], ref[acc_k]) if bool(acc_k.any()) else 0.0) if kept else math.inf
+    return out
+
+
+# An LM chunk is held to its plain version iteration by iteration, from the
+# kernel's own state. Its first two iterations (lam 1e-3 and below it once)
+# in full, as one step and a second were held before: the step within
+# FALIGN_STEP_RTOL, lam, w2, and the carried cost, H and g against the plain
+# linearisation at the kernel's parameters within FALIGN_BLOCK_RTOL. Every
+# iteration's step held to its system in float64 (FALIGN_ETA_U), its flags
+# (it, done, the step taken) equal to the plain version's, and its carried cost, H and g
+# within FALIGN_BLOCK_RTOL of the plain linearisation's (the first two) or
+# of the one-shot linearise kernel's (held to the plain version above) at
+# its parameters. Later iterations solve ever less damped systems (lam
+# falls by up to 3x an accepted step towards 1e-7), whose steps any two
+# float32 factorisation orders give apart by far more than the rounding,
+# and approach the optimum, where g is a sum that cancels to far below its
+# terms, and many residuals near the sqrt-Cauchy branch at r^2 =
+# FLT_EPSILON, where a last bit moves a pixel's Jacobian; their step, lam
+# and state readings against the plain float32 version are printed.
+FALIGN_FULL_STEPS = 2
+
+
+def chunk_case(np, torch, prob, st, lanes, stride, n, what):
+    """n LM iterations from st through the chunk kernel, held iteration by
+    iteration: the kernel's chunk of n is bitwise its n chunks of one, and
+    each of those against the plain iteration from the same state
+    (step_errs; the first FALIGN_FULL_STEPS in full). Returns (the worst
+    readings, the kernel's state); raises where they disagree beyond the
+    tolerances."""
+    from voldor_tpu_torch.ops import falign_kernels as fk
+
+    whole = fk.lm_chunk(prob, st, lanes, stride, n)
+    cur, worst, late, accepted, by_iter = st, {}, {}, [], []
+    for k in range(n):
+        sk, step_k = kernel_iteration(torch, prob, cur, lanes, stride)
+        sp = fk.lm_step_reference(prob, cur, lanes, stride, cur.it + 1)
+        rec = step_errs(torch, prob, lanes, stride, cur, sk, sp, step_k)
+        by_iter.append(rec.pop("step64_lanes"))
+        if k >= FALIGN_FULL_STEPS:
+            kern = step_errs(torch, prob, lanes, stride, cur, sk, sp, step_k, blocks=fk.linearize)
+            late_keys = ("step", "step_abs", "lam", "cost", "H", "g")
+            for key in late_keys:
+                late[key] = max(late.get(key, 0.0), rec[key])
+            rec = {key: kern[key] if key in ("cost", "H", "g") else v for key, v in rec.items()
+                   if key not in ("step", "step_abs", "lam")}
+        for key, v in rec.items():
+            worst[key] = (worst.get(key, True) and v) if isinstance(v, bool) else max(worst.get(key, 0.0), v)
+        accepted.append((sk.params != cur.params).flatten(1).any(dim=1).int().tolist())
+        cur = sk
+    worst["chunk_is_its_steps"] = all(bool(torch.equal(x, y)) for x, y in zip(whole, cur))
+    worst["it"] = worst["it"] and worst["chunk_is_its_steps"]
+    worst["iterations"] = cur.it.tolist()
+    worst["accepted"] = accepted
+    worst["late"] = late
+    # per iteration, per lane: the distances from the float64 step (kernel,
+    # plain float32), then the backward errors (kernel, plain float32)
+    worst["step64_by_iter"] = by_iter
+    bad = (not (worst["it"] and worst["done"]) or worst["step"] > FALIGN_STEP_RTOL
+           or worst["step_eta_excess"] > 1.0
+           or max(worst[k] for k in ("lam", "cost", "w2", "H", "g")) > FALIGN_BLOCK_RTOL)
+    log(f"[falign-kernels] LM {what}: {json.dumps(worst)}")
     if bad:
-        raise AssertionError(f"falign LM kernels disagree with their plain versions: {what}")
-    return rec, sk
+        raise AssertionError(f"falign LM chunk kernel disagrees with its plain version: {what}")
+    return worst, whole
+
+
+def keyframe_lane(np, torch, sc, frames, dof7=True):
+    """One falign() lane of the full-SLAM scene's frames `frames`, fully
+    connected (N (N - 1) pairs, D = 9 N), at falign_batch's settings (1%
+    seeded depth noise blurred at width 3, gray images blurred at width 5,
+    seeded confidences, photometric), 7-dof with falign()'s one scale-gauge
+    row, or 6-dof without gauge rows; the true poses relative to the first
+    frame with a small seeded error, and seeded depth-scale and colour
+    parameters. Returns (prob, params (1, N, 9), lanes)."""
+    from voldor_tpu_torch.falign import api as falign_api
+    from voldor_tpu_torch.falign.residual import precompute_maps
+    from voldor_tpu_torch.ops.image import gaussian_blur
+    from voldor_tpu_torch.slam.slam_utils import T44_to_T6
+
+    rng = np.random.default_rng(400)
+    n = len(frames)
+
+    def blur(a, k):
+        return gaussian_blur(torch.from_numpy(np.ascontiguousarray(a, np.float32)), k).numpy()
+
+    D = np.stack([blur(sc["depths"][f] * (1.0 + 0.01 * rng.standard_normal((H, W))), 3)
+                  for f in frames])
+    I = np.stack([blur(sc["images_grayf"][f], 5) for f in frames])
+    Wt = rng.uniform(0.5, 1.0, D.shape).astype(np.float32)
+    dev = torch.device("cuda")
+    maps = precompute_maps(*(falign_api._tensor(a, dev) for a in (D, Wt, I)), FX, FY, W / 2, H / 2)
+    pairs = [(r, t) for r in range(n) for t in range(n) if r != t]
+    gauge = np.zeros((1 if dof7 else 0, 9 * n), np.float32)
+    gauge[:, 6::9] = 1.0
+    prob = falign_api._problem(maps, pairs, n, FX, FY, W / 2, H / 2, BASEFOCAL * 5, 10.0, True,
+                               falign_api._dim_mask(n, dof7, True), gauge, dev)
+    params = np.zeros((1, n, 9), np.float32)
+    for k, f in enumerate(frames[1:], 1):
+        rel = sc["Ts"][frames[0]] @ np.linalg.inv(sc["Ts"][f])  # cam f -> the first camera
+        params[0, k, :6] = T44_to_T6(rel.astype(np.float32)) + rng.normal(0, [2e-3] * 3 + [1e-2] * 3)
+    params[0, :, 6:] = rng.normal(0, [0.01, 0.02, 0.5], (n, 3))
+    params[0, :, 6] *= float(dof7)  # 6-dof: the scale stays 0
+    return prob, torch.as_tensor(params, device=dev), torch.zeros(1, dtype=torch.int64, device=dev)
+
+
+# falign() lanes of phase 12: (frames, 7-dof, chunk length, what they cover)
+KEYFRAME_LANES = (
+    ((0, 5, 10), False, 4, "three frames, 6-dof, no gauge rows (D = 27, the warp factor)"),
+    ((0, 5, 10, 15), True, 4, "four frames (D = 36, the block-wide factor)"),
+    (tuple(range(20)), True, 3, "twenty frames (D = 180, 380 pairs in 24 groups)"),
+)
 
 
 def phase_falign_kernels(np, torch, sc):
-    """The linearise kernel (both modes, with its reduce pass) and the two LM
-    kernels against their plain versions on the card, on phase 12's geo,
-    photo and loop-closure batches at strides 3, 4 and 6; two launches on
-    the same inputs bitwise equal; a rejected step, a failed Cholesky
-    factor and frozen lanes; wrong inputs refused; one chunk of LM
-    iterations under set_sync_debug_mode("error")."""
+    """The linearise kernel (both modes) and the LM chunk kernel against
+    their plain versions on the card, on phase 12's geo, photo and
+    loop-closure batches at strides 3, 4 and 6: one step, a second, a chunk
+    of 8; rejected steps, a failed Cholesky factor and frozen lanes; a lane
+    of four frames (the block-wide factor); two launches on the same inputs
+    bitwise equal, a chunk of 8 bitwise equal to eight chunks of one; a
+    chunk under set_sync_debug_mode("error"); wrong inputs refused."""
     from voldor_tpu_torch.falign import solver as fsolver
     from voldor_tpu_torch.falign.residual import pair_score_sums
     from voldor_tpu_torch.ops import falign_kernels as fk
 
-    worst = dict(blocks=0.0, blocks_abs=0.0, cons=0.0, step=0.0, step_abs=0.0)
+    worst = dict(blocks=0.0, blocks_abs=0.0, cons=0.0, step=0.0, step_abs=0.0, state=0.0)
+
+    def note(rec):
+        worst["step"] = max(worst["step"], rec["step"])
+        worst["step_abs"] = max(worst["step_abs"], rec["step_abs"])
+        worst["state"] = max([worst["state"]] + [rec[k] for k in ("lam", "cost", "w2", "H", "g")])
+        return rec
+
     for kind in ("geo", "photo", "lc"):
         prob, params, lanes = falign_kernel_inputs(np, torch, sc, kind)
         for stride in FALIGN_STRIDES:
             kern = fk.linearize(prob, params, lanes, stride)
             plain = plain_blocks(prob, params, lanes, stride)
             errs = block_errs(kern, plain)
-            p1 = fk.linearize_partials(prob, params, lanes, stride)
-            p2 = fk.linearize_partials(prob, params, lanes, stride)
+            p1 = fk.linearize_packed(prob, params, lanes, stride)
+            p2 = fk.linearize_packed(prob, params, lanes, stride)
             nk, ck = fk.score_sums(prob, params, lanes, stride, 1.0)
             npl, cpl = pair_score_sums(params, lanes, prob.pairs, prob.maps, *prob.intr, prob.vbf,
                                        prob.crw, prob.use_photo, stride,
                                        torch.tensor(1.0, device="cuda"))
-            s1 = fk.linearize_partials(prob, params, lanes, stride, scores=True)
-            s2 = fk.linearize_partials(prob, params, lanes, stride, scores=True)
+            s1 = fk.linearize_packed(prob, params, lanes, stride, scores=True)
+            s2 = fk.linearize_packed(prob, params, lanes, stride, scores=True)
             torch.cuda.synchronize()
             cons = rel_err(ck[:, None], cpl[:, None])
             same_vis = bool(torch.equal(nk, npl))
@@ -1573,24 +1786,18 @@ def phase_falign_kernels(np, torch, sc):
             if max(errs.values()) > FALIGN_BLOCK_RTOL or cons > FALIGN_BLOCK_RTOL or not bitwise:
                 raise AssertionError(f"falign linearise kernel disagrees ({kind}, stride {stride})")
             st = fsolver.phase_init(prob, params, lanes, stride)
-            rec, st1 = lm_case(np, torch, prob, st, lanes, stride, st.it + 1,
-                               f"{kind} stride {stride}, one step")
-            worst["step"] = max(worst["step"], rec["step"])
-            worst["step_abs"] = max(worst["step_abs"], rec["step_abs"])
-            # a second step from the first's state (lam and w2 carried)
-            lm_case(np, torch, prob, st1, lanes, stride, st1.it + 1,
-                    f"{kind} stride {stride}, a second step")
+            note(chunk_case(np, torch, prob, st, lanes, stride, 8,
+                            f"{kind} stride {stride}, a chunk of 8")[0])
         st = fsolver.phase_init(prob, params, lanes, 4)
         # every step rejected: the carried cost below any trial's
-        lm_case(np, torch, prob, st._replace(cost=torch.zeros_like(st.cost)), lanes, 4,
-                st.it + 1, f"{kind}, rejected steps")
+        note(chunk_case(np, torch, prob, st._replace(cost=torch.zeros_like(st.cost)), lanes, 4, 1,
+                        f"{kind}, rejected steps")[0])
         # a failed Cholesky factor: the identity, ok false, the step rejected
         eye = torch.eye(18, device="cuda").expand_as(st.H)
-        rec, _ = lm_case(np, torch, prob, st._replace(H=(-1e6 * eye).contiguous(),
-                                                      g=torch.zeros_like(st.g)),
-                         lanes, 4, st.it + 1, f"{kind}, failed factor")
-        if any(rec["ok"]):
-            raise AssertionError("falign LM: a negative definite system factored")
+        st_f = st._replace(H=(-1e6 * eye).contiguous(), g=torch.zeros_like(st.g))
+        _, out_f = chunk_case(np, torch, prob, st_f, lanes, 4, 1, f"{kind}, failed factor")
+        if not (torch.equal(out_f.params, st_f.params) and torch.equal(out_f.lam, 4.0 * st_f.lam)):
+            raise AssertionError("falign LM: a negative definite system was not rejected")
         # frozen lanes: done (the even ones), or all out of budget
         st_d = st._replace(done=lanes % 2 == 0)
         frozen = fk.lm_iteration(prob, st_d, lanes, 4, st.it + 1)
@@ -1598,8 +1805,31 @@ def phase_falign_kernels(np, torch, sc):
             raise AssertionError("falign LM: a lane that was done changed")
         if not all(torch.equal(x, y) for x, y in zip(fk.lm_iteration(prob, st, lanes, 4, st.it), st)):
             raise AssertionError("falign LM: lanes out of budget changed")
-    # reproducible run to run: one whole chunk twice
+        # a chunk of 8 against eight chunks of one, the done lanes included
+        whole = fk.lm_chunk(prob, st_d, lanes, 4, 8)
+        ones = st_d
+        for _ in range(8):
+            ones = fk.lm_chunk(prob, ones, lanes, 4, 1)
+        if not all(torch.equal(x, y) for x, y in zip(whole, ones)):
+            raise AssertionError(f"falign LM: a chunk of 8 differs from eight chunks of one ({kind})")
+        log(f"[falign-kernels] {kind}: a chunk of 8 bitwise equal to eight chunks of one "
+            f"(iterations {whole.it.tolist()}, done lanes frozen)")
+    # falign() lanes: the warp factor without gauge rows, the block-wide one
+    for frames, dof7, n_it, what in KEYFRAME_LANES:
+        probk, paramsk, lanesk = keyframe_lane(np, torch, sc, frames, dof7)
+        n_p = probk.pairs.shape[0]
+        errs = block_errs(fk.linearize(probk, paramsk, lanesk, 4),
+                          plain_blocks(probk, paramsk, lanesk, 4))
+        log(f"[falign-kernels] a lane of {what}, {n_p} pairs, stride 4: blocks vs plain "
+            f"{json.dumps(errs)}; shared memory per block "
+            f"{fk.lm_smem_bytes(len(frames), probk.gauge_U.shape[0], n_p)} B")
+        if max(errs.values()) > FALIGN_BLOCK_RTOL:
+            raise AssertionError(f"falign linearise kernel disagrees on a lane of {what}")
+        stk = fsolver.phase_init(probk, paramsk, lanesk, 4)
+        note(chunk_case(np, torch, probk, stk, lanesk, 4, n_it,
+                        f"a lane of {what}, a chunk of {n_it}")[0])
     prob, params, lanes = falign_kernel_inputs(np, torch, sc, "photo")
+    # reproducible run to run: one whole chunk twice
     st = fsolver.phase_init(prob, params, lanes, 4)
     a = fsolver.lm_iterate(prob, st, lanes, 4, 8)
     b = fsolver.lm_iterate(prob, st, lanes, 4, 8)
@@ -1613,20 +1843,28 @@ def phase_falign_kernels(np, torch, sc):
     log(f"[falign-kernels] a chunk of 8 LM iterations twice: bitwise equal; under "
         f"set_sync_debug_mode('error'): no host sync; iterations per lane {a.it.tolist()}")
     # refusals
-    part = fk.linearize_partials(prob, params, lanes, 4)
-    prop = fk.lm_propose(prob, st, st.it + 1)
-    expect_refused(ValueError, lambda: fk.linearize_partials(prob, params.cpu(), lanes, 4),
+    cpu_maps = prob.maps._replace(packed=prob.maps.packed.cpu(), weights=prob.maps.weights.cpu())
+    expect_refused(ValueError, lambda: fk.linearize_packed(prob, params.cpu(), lanes, 4),
                    "params on the CPU")
-    expect_refused(ValueError, lambda: fk.linearize_partials(
+    expect_refused(ValueError, lambda: fk.linearize_packed(
         prob, params[..., :8].contiguous(), lanes, 4), "params of a wrong shape")
-    expect_refused(ValueError, lambda: fk.lm_accept(prob, st, prop, part[..., :100].contiguous()),
-                   "partials of a wrong shape")
-    expect_refused(TypeError, lambda: fk.lm_propose(prob, st._replace(it=st.it.long()),
-                                                    st.it + 1), "an int64 iteration count")
-    expect_refused(RuntimeError, lambda: fk._check_lm_fits(params.device, 40, 1),
+    expect_refused(ValueError, lambda: fk.lm_chunk(prob._replace(maps=cpu_maps), st, lanes, 4, 8),
+                   "maps on the CPU")
+    expect_refused(TypeError, lambda: fk.lm_chunk(prob, st._replace(it=st.it.long()), lanes, 4, 8),
+                   "an int64 iteration count")
+    expect_refused(RuntimeError, lambda: fk._check_lm_fits(params.device, 40, 1, 40 * 39),
                    "a 40-frame lane (360 parameters)")
-    log(f"[falign-kernels] LM shared memory: a 2-frame lane {fk.lm_smem_bytes(2, 1)} B, an "
-        f"8-frame lane {fk.lm_smem_bytes(8, 1)} B; largest error {json.dumps(worst)}")
+    fk._check_lm_fits(params.device, 26, 1, 26 * 25)  # the largest lane that fits
+    _, (fn, args) = captured_call(lambda: fk.lm_chunk(prob, st, lanes, 4, 1),
+                                  "falign_lm_chunk_launch")
+    rc = fn(*args[:-2], 32, args[-1])
+    if rc == 0:
+        raise AssertionError("falign kernels: a cluster of 32 blocks was not refused")
+    log(f"[falign-kernels] a cluster of 32 blocks: refused by the chunk kernel's C entry point "
+        f"(cudaError {rc})")
+    log(f"[falign-kernels] chunk kernel shared memory per block: a 2-frame lane "
+        f"{fk.lm_smem_bytes(2, 1, 2)} B, a 26-frame lane {fk.lm_smem_bytes(26, 1, 650)} B; "
+        f"largest error {json.dumps(worst)}")
     return worst
 
 
@@ -1700,86 +1938,194 @@ def falign_least_bytes(np, torch, prob, params, lanes, stride):
     return 32 * (len(packed) + weights) + 4 * B * 18 + 4 * B * fk.N_GRAM
 
 
+_PROBE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 6
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+# block 0's phases of a chunk iteration (csrc/falign_lm.cu: Phase)
+CHUNK_PHASES = ("setup", "factor_solves", "step", "pair_consts", "barrier_a", "linearize",
+                "barrier_b", "rank_reduce", "accept")
+# the chain probe's pieces (csrc/falign_lm.cu:falign_chain_probe_kernel) and
+# the repetitions each is timed over
+CHAIN_PIECES = (("factor_solves", 2000), ("pair_consts", 2000), ("pixel", 5000),
+                ("gram_tile", 5000), ("rank_reduce", 2000), ("cluster_barrier", 20000))
+
+
+def falign_chain(torch, prob, params, stride, cluster):
+    """The chunk kernel's chain floor for one LM iteration of a lane (two
+    frames, two pairs), from falign_chain_probe_kernel: each piece repeated
+    n times in one launch (CUDA events around it), per repetition. The
+    floor adds the warp's factor and solves (D = 18), one pair's constants,
+    one pixel's evaluation, the Gram sums of the tiles the busiest block
+    takes (np x ceil(T / C) tiles of 512 pixels), block 0's rank-order sum
+    of the C blocks' np x 190 sums, and two cluster barriers. Returns
+    (floor us, {piece: us per repetition}, tiles of the busiest block)."""
+    from voldor_tpu_torch.ops import _build
+    from voldor_tpu_torch.ops import falign_kernels as fk
+
+    fn = _build.function("falign_chain_probe_launch", _PROBE_ARGTYPES)
+    F, h, w, _ = prob.maps.packed.shape
+    out = torch.zeros(1, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    n_p = prob.pairs.shape[0]
+    p0 = params[0].contiguous()
+    us = {}
+    for which, (name, n) in enumerate(CHAIN_PIECES):
+        C = cluster if which >= 4 else 1
+
+        def launch(reps=n):
+            checked(fn(prob.maps.packed.data_ptr(), prob.maps.weights.data_ptr(), h, w, stride,
+                       int(bool(prob.use_photo)), *prob.scalars, p0.data_ptr(),
+                       prob.pairs.data_ptr(), prob.dim_mask.data_ptr(), prob.n_frames, n_p, which,
+                       reps, C, out.data_ptr(), stream), f"chain probe {name}")
+
+        launch(10)
+        us[name] = event_ms(torch, launch, 3) / n * 1e3
+        if not math.isfinite(float(out)):
+            raise AssertionError(f"falign chain probe {name} left {float(out)}")
+    tiles = n_p * -(-fk.n_tiles(h, w, stride) // cluster)
+    floor = (us["factor_solves"] + us["pair_consts"] + us["pixel"] + tiles * us["gram_tile"]
+             + us["rank_reduce"] + 2 * us["cluster_barrier"])
+    return floor, us, tiles
+
+
 def falign_times(np, torch, sc):
-    """Device-only times of the four falign kernel launches at phase 14's
-    4-pair photometric batch (stride 4) and the loop-closure batch (stride
-    3), through their C entry points (CUDA events over 100 back-to-back
-    launches), beside their plain versions (CUDA events around one call)
-    and their bounds. Returns the records of the linearise and LM
-    kernels."""
+    """Device-only times of the falign kernels at phase 14's 4-pair
+    photometric batch (stride 4) and the loop-closure batch (stride 3):
+    the one-shot linearise and scores launches (CUDA events over 100
+    back-to-back launches of the bound C call), the LM chunk kernel over a
+    chunk of 8 from the phase start with clusters of 8 and of 16 blocks
+    (per launch and per batched iteration; block 0's phases of an
+    iteration timed in the kernel), beside their plain versions
+    (CUDA events around one call), their bytes and operations bounds, the
+    chunk's chain floor (falign_chain), and two yardsticks the port never
+    calls: one torch.bmm of the plain Jacobians' Gram matrices, and
+    torch.linalg.cholesky_ex + torch.cholesky_solve on the lanes' damped
+    (L, 18, 18) systems. Returns the records by batch."""
     from voldor_tpu_torch.falign import solver as fsolver
-    from voldor_tpu_torch.falign.residual import pair_score_sums
+    from voldor_tpu_torch.falign.residual import pair_jacobians, pair_score_sums
     from voldor_tpu_torch.ops import falign_kernels as fk
 
     recs = {}
     for kind, stride in (("photo", 4), ("lc", 3)):
         prob, params, lanes = falign_kernel_inputs(np, torch, sc, kind)
         st = fsolver.phase_init(prob, params, lanes, stride)
-        it_end = st.it + 1
-        # each launch's outputs stay referenced (part, red_out, ...) while
-        # its recorded pointers are launched again below
-        part, lin = captured_call(lambda: fk.linearize_partials(prob, params, lanes, stride),
-                                  "falign_linearize_launch")
-        red_out, red = captured_call(lambda: fk.reduce_partials(part), "falign_reduce_launch")
-        sc_out, sco = captured_call(lambda: fk.linearize_partials(
+        # each launch's outputs stay referenced (lin_out, ...) while its
+        # recorded pointers are launched again below
+        lin_out, lin = captured_call(lambda: fk.linearize_packed(prob, params, lanes, stride),
+                                     "falign_linearize_launch")
+        sco_out, sco = captured_call(lambda: fk.linearize_packed(
             prob, params, lanes, stride, scores=True), "falign_linearize_launch")
-        prop, pro = captured_call(lambda: fk.lm_propose(prob, st, it_end),
-                                  "falign_lm_propose_launch")
-        lin_t = fk.linearize_partials(prob, prop.trial, lanes, stride, active=prop.active)
-        acc_out, acc = captured_call(lambda: fk.lm_accept(prob, st, prop, lin_t),
-                                     "falign_lm_accept_launch")
-        trial_blocks = plain_blocks(prob, prop.trial, lanes, stride)
-        ms = {}
-        for name, (fn, args) in (("linearize", lin), ("reduce", red), ("scores", sco),
-                                 ("propose", pro), ("accept", acc)):
+        ms, ms_by_cluster = {}, {}
+        for name, (fn, args) in (("linearize", lin), ("scores", sco)):
             ms[name] = device_ms(torch, lambda: checked(fn(*args), name))
+            for C in (8, 16):  # the same launch with clusters of C blocks
+                args_c = args[:-2] + (C, args[-1])
+                ms_by_cluster[f"{name}_{C}"] = device_ms(torch, lambda: checked(fn(*args_c), name))
+        chunk = {}
+        out, (fn, args) = captured_call(lambda: fk.lm_chunk(prob, st, lanes, stride, 8),
+                                        "falign_lm_chunk_launch")
+        for C in (8, 16):
+            args_c = args[:-2] + (C, args[-1])  # the same launch with clusters of C blocks
+            checked(fn(*args_c), f"chunk, cluster of {C}")
+            iters = int((out.it - st.it).max())
+            lane_iters = (out.it - st.it).tolist()
+            launch_ms = device_ms(torch, lambda: checked(fn(*args_c), "chunk"))
+            chunk[C] = dict(launch_ms=launch_ms, batched_iters=iters, ms=launch_ms / iters,
+                            lane_iters=lane_iters)
+            if C == fk.CLUSTER:
+                # block 0's phases (falign_lm.cu: Phase), timed in the kernel
+                prof = torch.zeros((params.shape[0], len(CHUNK_PHASES) + 1), dtype=torch.int64,
+                                   device="cuda")
+                checked(fn(*args_c[:-3], prof.data_ptr(), *args_c[-2:]), "timed chunk")
+                per = (prof[:, :-1].double() / prof[:, -1:].double().clamp_min(1)).mean(0) * 1e-3
+                chunk[C]["phases_us"] = dict(zip(CHUNK_PHASES, per.tolist()))
+        del out
+        L, D = params.shape[0], 18
+        plain_chunk = event_ms(torch, lambda: fk.lm_chunk_reference(prob, st, lanes, stride, 8), 3)
         plain = dict(
             linearize=event_ms(torch, lambda: plain_blocks(prob, params, lanes, stride), 5),
             scores=event_ms(torch, lambda: pair_score_sums(
                 params, lanes, prob.pairs, prob.maps, *prob.intr, prob.vbf, prob.crw,
                 prob.use_photo, stride, torch.tensor(1.0, device="cuda")), 5),
-            propose=event_ms(torch, lambda: fk.lm_propose_reference(prob, st, it_end), 5),
-            accept=event_ms(torch, lambda: fk.lm_accept_reference(prob, st, prop, trial_blocks), 5))
-        # the kernel's Gram reduction alone, as one torch.bmm over the plain
-        # Jacobians (a yardstick: the port never calls it)
-        from voldor_tpu_torch.falign.residual import pair_jacobians
+            chunk_per_iter=plain_chunk / chunk[fk.CLUSTER]["batched_iters"])
+        # the yardsticks
         res, Jr, Jt = pair_jacobians(params, lanes, prob.pairs, prob.dim_mask, prob.maps,
                                      *prob.intr, prob.vbf, prob.crw, prob.use_photo, stride)
         V = torch.cat([res[..., None], Jr, Jt], -1).reshape(-1, res.shape[-1], 19)
         Vt = V.transpose(1, 2).contiguous()
         bmm_ms = device_ms(torch, lambda: torch.bmm(Vt, V))
-        B, T = part.shape[0], part.shape[1]
+        prop = fk.lm_propose_reference(prob, st, st.it + 1)
+        w2 = prop.info[:, 0]
+        U = prob.gauge_U
+        Hg = st.H + w2[:, None, None] * (U.T @ U)
+        diag = torch.clamp_min(torch.diagonal(Hg, dim1=-2, dim2=-1), 1e-8)
+        damped = Hg + torch.diag_embed(st.lam[:, None] * diag + (1.0 - prob.dim_mask).reshape(-1))
+        rhs = st.g[..., None].contiguous()
+
+        def chol():
+            f, _ = torch.linalg.cholesky_ex(damped)
+            return torch.cholesky_solve(rhs, f)
+
+        chol_ms = device_ms(torch, chol, 20)
+        # bounds
+        B, T = L * prob.pairs.shape[0], fk.n_tiles(H, W, stride)
         hs, ws = fk.grid_size(H, W, stride)
         n_px = B * hs * ws
         fp32, sfu = ops_ms({"px": n_px, "gram": n_px}, {"px": FALIGN_PX, "gram": FALIGN_GRAM})
         by = falign_least_bytes(np, torch, prob, params, lanes, stride) / HBM_BYTES_PER_S * 1e3
         lin_bound = max(by, fp32, sfu)
         s_fp32, s_sfu = ops_ms({"px": n_px}, {"px": FALIGN_SCORE_PX})
-        L, D = params.shape[0], 18
-        # the LM step: propose reads the state and writes the trial; accept
-        # reads the partials, the state and the trial and writes the state.
-        # Operations: the factor (D^3 / 6 FMAs, D square roots, D^2 / 2
-        # divisions) and the solves (D^2) per lane; the assembly's adds.
+        # the chunk, per batched iteration: the maps' sectors and the state
+        # (read once and written once a launch) spread over its iterations;
+        # per iteration the linearisation's operations, the factor (D^3 / 6
+        # FMAs, D square roots, D^2 / 2 divisions), the solves (D^2) and the
+        # assembly's adds per lane
+        its = chunk[fk.CLUSTER]["batched_iters"]
         state_b = 4 * L * (D * D + D + 9 * 2 + 5)
-        lm_bytes = (2 * state_b + 4 * L * (18 + 8)) + (4 * B * T * fk.N_GRAM + state_b)
-        lm_fp32, lm_sfu = ops_ms({"l": L}, {"l": least_ops(D ** 3 // 6 + D * D + B // L * T * 190,
+        lm_fp32, lm_sfu = ops_ms({"l": L}, {"l": least_ops(D ** 3 // 6 + D * D + B // L * 190,
                                                            div=D * D // 2 + 2 * D, sqrt=D)})
-        lm_bound = max(lm_bytes / HBM_BYTES_PER_S * 1e3, lm_fp32, lm_sfu)
-        recs[kind] = dict(stride=stride, pair_evals=B, tiles=T, ms=ms, plain_ms=plain,
-                          bmm_gram_ms=bmm_ms, linearize_bound_ms=lin_bound,
+        ch_bytes_ms = (by + 2 * state_b / HBM_BYTES_PER_S * 1e3) / its
+        ch_ops_ms = max(fp32 + lm_fp32, sfu + lm_sfu)
+        floors = {C: falign_chain(torch, prob, params, stride, C) for C in (8, 16)}
+        floor_us, pieces, tiles = floors[fk.CLUSTER]
+        # the bound of the kernels line (bytes or operations); the chain
+        # floor beside it, and which of the three binds
+        ch_bound = max(ch_bytes_ms, ch_ops_ms)
+        bound_by = "bytes" if ch_bytes_ms >= ch_ops_ms else "operations"
+        binds = "the chain floor" if floor_us * 1e-3 >= ch_bound else bound_by
+        recs[kind] = dict(stride=stride, pair_evals=B, tiles=T, ms=ms, ms_by_cluster=ms_by_cluster,
+                          chunk=chunk, plain_ms=plain,
+                          bmm_gram_ms=bmm_ms, cholesky_ms=chol_ms, linearize_bound_ms=lin_bound,
                           linearize_bound_by="bytes" if by >= max(fp32, sfu) else "operations",
                           linearize_bytes_ms=by, linearize_ops_ms=max(fp32, sfu),
-                          scores_bound_ms=max(s_fp32, s_sfu), lm_bound_ms=lm_bound,
-                          lm_bound_by="bytes" if lm_bytes / HBM_BYTES_PER_S * 1e3 >= max(
-                              lm_fp32, lm_sfu) else "operations")
+                          scores_bound_ms=max(s_fp32, s_sfu), lm_bound_ms=ch_bound,
+                          lm_bound_by=bound_by, lm_binds=binds, lm_bytes_ms=ch_bytes_ms,
+                          lm_ops_ms=ch_ops_ms,
+                          cluster=fk.CLUSTER, chain_floor_us=floor_us, chain_pieces_us=pieces,
+                          chain_tiles=tiles,
+                          chain_floor_by_cluster_us={C: f[0] for C, f in floors.items()})
         log(f"[times] falign kernels, {kind} batch (stride {stride}, {B} pair evaluations x "
-            f"{hs}x{ws} pixels, {T} tiles): device ms per launch ({N_LAUNCH} launches) "
-            f"{json.dumps({k: round(v, 5) for k, v in ms.items()})}; plain versions ms "
+            f"{hs}x{ws} pixels, {T} tiles of {fk.THREADS}): one-shot device ms per launch "
+            f"({N_LAUNCH} launches) {json.dumps({k: round(v, 5) for k, v in ms.items()})} (by "
+            f"cluster size {json.dumps({k: round(v, 5) for k, v in ms_by_cluster.items()})}); LM "
+            f"chunk of 8 (lane iterations {chunk[8]['lane_iters']}): cluster of 8 "
+            f"{chunk[8]['launch_ms']:.5f} ms a launch, {chunk[8]['ms'] * 1e3:.3f} us per batched "
+            f"iteration; cluster of 16 {chunk[16]['launch_ms']:.5f} ms, "
+            f"{chunk[16]['ms'] * 1e3:.3f} us; block 0's phases of an iteration at the default "
+            f"cluster, us (timed in the kernel): "
+            f"{json.dumps({k: round(v, 3) for k, v in chunk[fk.CLUSTER]['phases_us'].items()})}; "
+            f"plain versions ms "
             f"{json.dumps({k: round(v, 4) for k, v in plain.items()})}; linearise bound "
             f"{lin_bound * 1e3:.3f} us (bytes {by * 1e3:.3f} us, FP32 {fp32 * 1e3:.3f} us, "
             f"special-function {sfu * 1e3:.3f} us); scores bound "
-            f"{max(s_fp32, s_sfu) * 1e3:.3f} us; LM step bound {lm_bound * 1e3:.4f} us; "
-            f"torch.bmm of the plain Jacobians' Gram alone {bmm_ms:.5f} ms")
+            f"{max(s_fp32, s_sfu) * 1e3:.3f} us; chunk per iteration: bytes "
+            f"{ch_bytes_ms * 1e3:.4f} us, operations {ch_ops_ms * 1e3:.4f} us, chain floor "
+            f"(clusters of 8 / 16) {floors[8][0]:.3f} / {floors[16][0]:.3f} us (pieces, us a "
+            f"repetition: {json.dumps({k: round(v, 4) for k, v in pieces.items()})}, the "
+            f"busiest block's tiles {floors[8][2]} / {floors[16][2]}); bound "
+            f"{ch_bound * 1e3:.4f} us by {bound_by}; at the default cluster of {fk.CLUSTER} "
+            f"{binds} binds; "
+            f"yardsticks: torch.bmm of the plain Jacobians' Gram {bmm_ms:.5f} ms, "
+            f"cholesky_ex + cholesky_solve of the ({L}, 18, 18) damped systems {chol_ms:.5f} ms")
     return recs
 
 
@@ -1909,52 +2255,89 @@ def profile_counts(torch, fn):
 
 
 def phase_mapping_times(np, torch, sc):
-    """falign_pairs per call and per LM iteration at 4 and 16 pairs (with
-    images, the local-link settings), with its launches and host syncs;
-    PGO dense and CG per solve at 60 and 600 poses."""
+    """falign_pairs per call and per batched LM iteration at 4 and 16 pairs
+    (with images, the local-link settings), with its launches and host
+    syncs, and the 4-pair call split into its set-up (the maps, each
+    phase's start), its chunks and its finish (covariances, scores); the
+    launches of one chunk of 8 LM iterations alone; PGO dense and CG per
+    solve at 60 and 600 poses."""
     from voldor_tpu_torch.falign import api as falign_api
     from voldor_tpu_torch.falign import solver as fsolver
     from voldor_tpu_torch.pgo import solver as pgo_solver
 
     out = {}
-    real_body = fsolver.lm_body
+    real_iterate = fsolver.lm_iterate
     for n_pairs in (4, 16):
         _, kw = falign_batch(np, torch, sc, n_pairs, True)
         falign_api.falign_pairs(**kw, device="cuda")  # warm
-        bodies = [0]
+        batched = [0]  # batched LM iterations: the chunks' lengths
 
-        def counted(*a, **k):
-            bodies[0] += 1
-            return real_body(*a, **k)
+        def counted(prob, st, lanes, stride, n_iters):
+            batched[0] += n_iters
+            return real_iterate(prob, st, lanes, stride, n_iters)
 
         times = []
-        fsolver.lm_body = counted
+        fsolver.lm_iterate = counted
         try:
             for _ in range(3):
-                bodies[0] = 0
+                batched[0] = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 rets = falign_api.falign_pairs(**kw, device="cuda")
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
         finally:
-            fsolver.lm_body = real_body
+            fsolver.lm_iterate = real_iterate
         chunks = []  # one read of the done flags per chunk of LM iterations
         with spying(fsolver, "lm_iterate", chunks):
             launches, syncs, copies = profile_counts(
                 torch, lambda: falign_api.falign_pairs(**kw, device="cuda"))
         call = statistics.median(times)
         lane_its = sum(r["iters"] + r["iters_coarse"] for r in rets)
-        out[n_pairs] = dict(call_s=call, per_iter_ms=call / bodies[0] * 1e3, batch_iters=bodies[0],
-                            lane_iters=lane_its, launches=launches, syncs=syncs, copies=copies,
-                            host_reads=len(chunks))
+        out[n_pairs] = dict(call_s=call, per_iter_ms=call / batched[0] * 1e3,
+                            batch_iters=batched[0], lane_iters=lane_its, launches=launches,
+                            syncs=syncs, copies=copies, host_reads=len(chunks))
         log(f"[times] falign_pairs {n_pairs} pairs (photo + geo, 7-dof, stride 4, coarse 6): "
             f"{call:.4f} s per call (median of 3: {[round(t, 4) for t in times]}), "
-            f"{bodies[0]} batched LM iterations ({lane_its} lane iterations), "
-            f"{call / bodies[0] * 1e3:.3f} ms per batched iteration; per call {launches} kernel "
-            f"launches ({launches / bodies[0]:.2f} per batched iteration, set-up included), "
-            f"{syncs} host syncs, {copies} memcpys, {len(chunks)} done-flag reads (the LM on torch ops "
-            f"made ~606 launches per batched iteration and 37 host syncs per 4-pair call)")
+            f"{batched[0]} batched LM iterations ({lane_its} lane iterations), "
+            f"{call / batched[0] * 1e3:.3f} ms per batched iteration; per call {launches} kernel "
+            f"launches ({launches / batched[0]:.3f} per batched iteration, set-up included), "
+            f"{syncs} host syncs, {copies} memcpys, {len(chunks)} done-flag reads (three launches "
+            f"an iteration made 626 launches and 35 host syncs per 4-pair call)")
+    # the 4-pair call split: synchronised timers around its parts
+    _, kw = falign_batch(np, torch, sc, 4, True)
+    split = dict(maps=0.0, phase_init=0.0, chunks=0.0, covariances=0.0, scores=0.0)
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t
+            return r
+        return wrapper
+
+    parts = ((falign_api, "precompute_maps", "maps"), (fsolver, "phase_init", "phase_init"),
+             (fsolver, "lm_iterate", "chunks"), (falign_api, "pair_covariances", "covariances"),
+             (falign_api, "align_scores", "scores"))
+    reals = [getattr(m, name) for m, name, _ in parts]
+    for (m, name, key), fn in zip(parts, reals):
+        setattr(m, name, timed(key, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        falign_api.falign_pairs(**kw, device="cuda")
+        torch.cuda.synchronize()
+        whole = time.perf_counter() - t0
+    finally:
+        for (m, name, _), fn in zip(parts, reals):
+            setattr(m, name, fn)
+    split["rest"] = whole - sum(split.values())
+    out["split_4"] = dict(whole_s=whole, **split)
+    log(f"[times] falign_pairs 4 pairs split (synchronised timers, one call of {whole:.4f} s): "
+        f"{json.dumps({k: round(v, 5) for k, v in split.items()})} s; set-up (maps + phase "
+        f"starts) {split['maps'] + split['phase_init']:.5f} s, chunks {split['chunks']:.5f} s")
     # the launches of the LM iterations alone: one chunk of 8 on the 4-pair
     # batch's maps at stride 4
     prob, params, lanes = falign_kernel_inputs(np, torch, sc, "photo")
@@ -1965,11 +2348,13 @@ def phase_mapping_times(np, torch, sc):
     out["lm_chunk"] = dict(iterations=8, launches=chunk_launches, syncs=chunk_syncs,
                            per_iter=chunk_launches / 8)
     log(f"[times] falign LM: a chunk of 8 batched iterations (4 lanes, stride 4) makes "
-        f"{chunk_launches} kernel launches, {chunk_launches / 8:.3f} per iteration (on torch ops: ~606), "
-        f"and {chunk_syncs} syncs, the profile's own closing synchronize included")
-    if chunk_launches / 8 > 10 or out[4]["syncs"] > 37:
-        raise AssertionError(f"falign: {chunk_launches / 8} launches per LM iteration (limit 10) "
-                             f"or {out[4]['syncs']} host syncs per 4-pair call (limit 37)")
+        f"{chunk_launches} kernel launches, {chunk_launches / 8:.3f} per iteration (three "
+        f"launches an iteration: 3.125), and {chunk_syncs} syncs, the profile's own closing "
+        f"synchronize included")
+    if not 1 <= chunk_launches <= 8 or out[4]["syncs"] > 37:
+        raise AssertionError(f"falign: {chunk_launches} launches in a chunk of 8 LM iterations "
+                             f"(limit 1 per iteration, at least the chunk's own) or "
+                             f"{out[4]['syncs']} host syncs per 4-pair call (limit 37)")
     for n in (60, 600):
         g = circle_graph(np, torch, n, seed=n)
         prob, _, _ = pgo_solver.build_problem(g[0], None, g[1], g[2], g[3], False,
@@ -2188,8 +2573,7 @@ def phase_full_slam(np, torch, sc):
         f"solves (fid_start, n_frames, n_edges, solve_s) {st['pgo']}; falign calls "
         f"{st['falign_calls']}; EM iterations {st['em_iters']}, cost kernel launches "
         f"{counts['cost']} ({counts['score']} in score mode), fb_smooth launches {counts['fb']}; "
-        f"falign kernels: linearise {counts['linearize']} (reduce {counts['reduce']}), LM "
-        f"propose {counts['lm_propose']}, accept {counts['lm_accept']}")
+        f"falign kernels: linearise {counts['linearize']}, LM chunks {counts['lm_chunk']}")
     log(f"[slam-full-mono] Sim3 ATE {ate:.6f} vs gate {0.02 * extent:.6f} (extent {extent:.4f})")
     check_counts("slam-full-mono", counts, st["em_iters"])
     check_falign_counts("slam-full-mono", counts)
@@ -2342,8 +2726,8 @@ def phase_cli(np, torch):
             f"load_map poses equal to the pose file {same}; metrics events {kinds}, loop-closure "
             f"candidates {cands}, LC links {lc}; "
             f"cost kernel launches {counts['cost']} ({counts['score']} in score mode), fb_smooth "
-            f"{counts['fb']}, falign linearise / reduce / propose / accept {counts['linearize']} / "
-            f"{counts['reduce']} / {counts['lm_propose']} / {counts['lm_accept']}; the child's flow "
+            f"{counts['fb']}, falign linearise / LM chunks {counts['linearize']} / "
+            f"{counts['lm_chunk']}; the child's flow "
             f"loader took the native prefetcher {native}; "
             f"reading the {SLAM_E2E_FLOWS} .flo files at {CLI_W}x{CLI_H} here: {json.dumps(loader)}")
         if not native:
@@ -2890,7 +3274,6 @@ def main():
             "source": "voldor_tpu_torch/csrc/falign_linearize.cu",
             "replaces": "voldor_tpu/falign/residual.py:207",
             "launches": sum(c.get("linearize", 0) for c in paths),
-            "reduce_launches": sum(c.get("reduce", 0) for c in paths),
             "launches_by_path": {n: c.get("linearize", 0) for n, c in zip(path_names, paths)},
             "max_abs_err": fk_err["blocks_abs"],
             "max_rel_err": fk_err["blocks"],
@@ -2899,32 +3282,44 @@ def main():
             "bound_ms": falign_rec["photo"]["linearize_bound_ms"],
             "bound_by": falign_rec["photo"]["linearize_bound_by"],
             "library_ms": None,
-            "reduce_ms": falign_rec["photo"]["ms"]["reduce"],
             "scores_ms": falign_rec["photo"]["ms"]["scores"],
             "scores_plain_ms": falign_rec["photo"]["plain_ms"]["scores"],
             "scores_bound_ms": falign_rec["photo"]["scores_bound_ms"],
             "bmm_gram_ms": falign_rec["photo"]["bmm_gram_ms"],
-            "lc_stride3": falign_rec["lc"],
+            "ms_by_cluster": falign_rec["photo"]["ms_by_cluster"],
+            "lc_stride3": {k: falign_rec["lc"][k] for k in (
+                "ms", "ms_by_cluster", "plain_ms", "linearize_bound_ms", "linearize_bound_by",
+                "scores_bound_ms", "bmm_gram_ms")},
         },
         {
             "name": "falign_lm",
             "route": "cuda",
             "source": "voldor_tpu_torch/csrc/falign_lm.cu",
             "replaces": "voldor_tpu/falign/solver.py:184",
-            "launches": sum(c.get("lm_propose", 0) + c.get("lm_accept", 0) for c in paths),
-            "propose_launches": sum(c.get("lm_propose", 0) for c in paths),
-            "accept_launches": sum(c.get("lm_accept", 0) for c in paths),
+            "launches": sum(c.get("lm_chunk", 0) for c in paths),
+            "launches_by_path": {n: c.get("lm_chunk", 0) for n, c in zip(path_names, paths)},
             "max_abs_err": fk_err["step_abs"],
             "max_rel_err": fk_err["step"],
-            "ms": falign_rec["photo"]["ms"]["propose"] + falign_rec["photo"]["ms"]["accept"],
-            "plain_ms": (falign_rec["photo"]["plain_ms"]["propose"]
-                         + falign_rec["photo"]["plain_ms"]["accept"]),
+            "max_rel_err_state": fk_err["state"],
+            "ms": falign_rec["photo"]["chunk"][falign_rec["photo"]["cluster"]]["ms"],
+            "plain_ms": falign_rec["photo"]["plain_ms"]["chunk_per_iter"],
             "bound_ms": falign_rec["photo"]["lm_bound_ms"],
             "bound_by": falign_rec["photo"]["lm_bound_by"],
             "library_ms": None,
-            "propose_ms": falign_rec["photo"]["ms"]["propose"],
-            "accept_ms": falign_rec["photo"]["ms"]["accept"],
+            "unit": "one batched LM iteration of a chunk of 8 (4 lanes, stride 4)",
+            "cluster": falign_rec["photo"]["cluster"],
+            "chunk_by_cluster": falign_rec["photo"]["chunk"],
+            "bytes_bound_ms": falign_rec["photo"]["lm_bytes_ms"],
+            "ops_bound_ms": falign_rec["photo"]["lm_ops_ms"],
+            "chain_floor_us": falign_rec["photo"]["chain_floor_us"],
+            "binds": falign_rec["photo"]["lm_binds"],
+            "chain_floor_by_cluster_us": falign_rec["photo"]["chain_floor_by_cluster_us"],
+            "chain_pieces_us": falign_rec["photo"]["chain_pieces_us"],
+            "cholesky_yardstick_ms": falign_rec["photo"]["cholesky_ms"],
             "launches_per_lm_iteration": mapping_times["lm_chunk"]["per_iter"],
+            "lc_stride3": {k: falign_rec["lc"][k] for k in (
+                "chunk", "plain_ms", "lm_bound_ms", "lm_bound_by", "chain_floor_us",
+                "chain_floor_by_cluster_us", "cholesky_ms")},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

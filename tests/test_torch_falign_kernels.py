@@ -1,7 +1,8 @@
 """The falign kernels' plain versions (falign/residual.py:pair_normal_blocks,
 pair_score_sums; ops/falign_kernels.py: lm_propose_reference,
-lm_accept_reference) against the JAX package, on the CPU, and the kernels
-against them on a CUDA device (tests marked ``gpu``).
+lm_accept_reference, the steps of the chunk kernel's plain version) against
+the JAX package, on the CPU, and the kernels against them on a CUDA device
+(tests marked ``gpu``).
 
 The JAX side runs op by op under ``jax.disable_jit()`` (compiled XLA
 contracts multiply-adds into FMAs). Tolerances, those of
@@ -226,7 +227,7 @@ def test_lm_plain_matches_jax_on_reject_and_failed_factor(frames, case):
     else:
         st = st._replace(H=-1e6 * torch.eye(18).expand(1, 18, 18).contiguous(),
                          g=torch.zeros_like(st.g))
-    prop = fk.lm_propose(prob, st, st.it + 1)
+    prop = fk.lm_propose_reference(prob, st, st.it + 1)
     assert bool(prop.info[0, 4] > 0) == (case == "rejected")  # the factor's ok flag
     with jax.disable_jit():
         js = body(_jstate(st))
@@ -351,11 +352,9 @@ def test_cpu_tensors_take_the_plain_versions(frames):
     st = tsol.phase_init(prob, p, lanes, 4)
     tsol.lm_iterate(prob, st, lanes, 4, 2)
     tsol.align_scores(prob, p, lanes, 1.0, 4)
-    assert fk.read_counts() == dict(linearize=0, reduce=0, lm_propose=0, lm_accept=0)
+    assert fk.read_counts() == dict(linearize=0, lm_chunk=0)
     with pytest.raises(ValueError, match="unsupported device"):
-        fk.linearize_partials(prob, p, lanes, 4)
-    part = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
-    assert torch.equal(fk.reduce_partials(part), part.sum(1))
+        fk.linearize_packed(prob, p, lanes, 4)
 
 
 def test_gram_packing_round_trip(frames):
@@ -407,8 +406,8 @@ def test_linearize_kernel_matches_plain_on_gpu(frames, stride):
                                     prob.vbf, prob.crw, True, stride)
     for name in BLOCKS:
         assert _rel(getattr(kern, name).cpu(), getattr(plain, name).cpu()) < 1e-4, name
-    assert torch.equal(fk.linearize_partials(prob, p, lanes, stride),
-                       fk.linearize_partials(prob, p, lanes, stride))
+    assert torch.equal(fk.linearize_packed(prob, p, lanes, stride),
+                       fk.linearize_packed(prob, p, lanes, stride))
     n_vis, cons = fk.score_sums(prob, p, lanes, stride, 1.0)
     n_ref, c_ref = tres.pair_score_sums(p, lanes, prob.pairs, prob.maps, *prob.intr, prob.vbf,
                                         prob.crw, True, stride, torch.tensor(1.0, device="cuda"))
@@ -418,17 +417,16 @@ def test_linearize_kernel_matches_plain_on_gpu(frames, stride):
 
 @pytest.mark.gpu
 def test_lm_kernels_match_plain_on_gpu(frames):
+    """One LM iteration of the chunk kernel (n = 1) against the plain
+    iteration from the same state."""
     prob, p, lanes = _card(frames)
     st = tsol.phase_init(prob, p, lanes, 2)
-    it_end = st.it + 1
-    pk, pp = fk.lm_propose(prob, st, it_end), fk.lm_propose_reference(prob, st, it_end)
-    step = (st.params - pp.trial).abs().max()
-    assert float((pk.trial - pp.trial).abs().max()) <= 2e-3 * float(step)
-    part = fk.linearize_partials(prob, pk.trial, lanes, 2, active=pk.active)
-    sk = fk.lm_accept(prob, st, pk, part)
-    sp = fk.lm_accept_reference(prob, st, pk, tres.pair_normal_blocks(
-        pk.trial, lanes, prob.pairs, prob.dim_mask, prob.maps, *prob.intr, prob.vbf, prob.crw,
-        True, 2))
+    before = fk.lm_chunk_launches
+    sk = fk.lm_chunk(prob, st, lanes, 2, 1)
+    assert fk.lm_chunk_launches == before + 1
+    sp = fk.lm_chunk_reference(prob, st, lanes, 2, 1)
+    step = (st.params - sp.params).abs().max()
+    assert float((sk.params - sp.params).abs().max()) <= 2e-3 * float(step)
     assert torch.equal(sk.it, sp.it) and torch.equal(sk.done, sp.done)
     for name in ("params", "lam", "cost", "w2", "H", "g"):
         assert _rel(getattr(sk, name)[:, None].cpu(), getattr(sp, name)[:, None].cpu()) < 1e-4

@@ -6,12 +6,12 @@ that share one pair list (local frame indices) and one dim mask. ``falign()``
 is one lane of N frames; ``falign_pairs()`` is P lanes of two frames with
 the pairs (0, 1) and (1, 0). Lane l's frame j is row ``l * N + j`` of the
 FrameMaps. The JAX package vmaps over pairs and runs a ``lax.while_loop``;
-here the batch is an explicit axis and the loop a host loop of LM
-iterations (``lm_iterate``), each of which advances the lanes that are
-live and not out of budget and freezes the others: on the card three
-kernel launches (``ops/falign_kernels.py``: propose, linearise, accept), on
-the CPU their plain versions. The done flags are read once per chunk of
-iterations (``solve_lanes``).
+here the batch is an explicit axis and a chunk of LM iterations
+(``lm_iterate``) advances the lanes that are live and not out of budget and
+freezes the others: on the card one launch of the chunk kernel
+(``ops/falign_kernels.py:lm_chunk``, a thread-block cluster a lane), on the
+CPU a host loop of ``lm_body`` over the plain versions. The done flags are
+read once per chunk (``solve_lanes``).
 
 The Jacobian is taken w.r.t. BOTH frames of every pair (the analytic chain
 rule of ``residual.pair_residual_and_grads``; forward mode through
@@ -129,8 +129,8 @@ def lm_body(prob: LaneProblem, st: PairLmState, lanes, stride: int, it_end=None)
     it < it_end (default: one more) and that is not done: solve the damped,
     gauge-regularised carried system, linearize at the trial point, accept
     or reject, adapt the damping by the gain ratio and test the stopping
-    rules. The other lanes keep their state. On the card: the three kernels
-    of ops/falign_kernels.py, no host read."""
+    rules. The other lanes keep their state. On the card: the chunk kernel
+    of ops/falign_kernels.py with n = 1, one launch and no host read."""
     if it_end is None:
         it_end = st.it + 1
     return fk.lm_iteration(prob, st, lanes, stride, it_end)
@@ -139,7 +139,11 @@ def lm_body(prob: LaneProblem, st: PairLmState, lanes, stride: int, it_end=None)
 def lm_iterate(prob: LaneProblem, st: PairLmState, lanes, stride: int, n_iters: int) -> PairLmState:
     """Up to n_iters LM iterations per lane with no host read: a lane runs
     while it < (its it at entry) + n_iters and it is not done; the others
-    keep their state (the vmapped ``lax.while_loop`` of ``solver.py:424-441``)."""
+    keep their state (the vmapped ``lax.while_loop`` of ``solver.py:424-441``).
+    On the card one launch of the chunk kernel; on the CPU a loop of
+    lm_body."""
+    if st.params.device.type != "cpu":
+        return fk.lm_chunk(prob, st, lanes, stride, n_iters)
     it_end = st.it + n_iters
     for _ in range(n_iters):
         st = lm_body(prob, st, lanes, stride, it_end)

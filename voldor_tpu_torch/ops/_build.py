@@ -2,8 +2,8 @@
 
 Every ``csrc/*.cu`` is compiled by its own nvcc process, all started
 together, and the objects are linked into one shared library in
-``voldor_tpu_torch/_build/``, named by a hash of the sources and the flags
-(an unchanged tree reuses it). The library has a plain C interface, bound
+``voldor_tpu_torch/_build/``, named by a hash of the sources, the headers
+they share (``csrc/*.cuh``) and the flags (an unchanged tree reuses it). The library has a plain C interface, bound
 through ctypes; each wrapper module declares the signature of its own
 entry point (``function``). ptxas's register and spill report of every
 kernel is kept beside the library (``ptxas_report``).
@@ -49,9 +49,13 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the kernels are built from source with nvcc")
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libvoldor_kernels_{digest.hexdigest()[:16]}.so"

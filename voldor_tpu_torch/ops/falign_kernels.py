@@ -1,37 +1,33 @@
-"""Frame alignment's LM iteration on hand-written CUDA kernels
-(``csrc/falign_linearize.cu``, ``csrc/falign_lm.cu``): their wrappers,
-their launch counts and the LM kernels' plain versions.
+"""Frame alignment's LM on hand-written CUDA kernels (``csrc/falign_lm.cu``,
+``csrc/falign_linearize.cu``, both on ``csrc/falign_common.cuh``): their
+wrappers, their launch counts and their plain versions.
 
 The JAX package runs a chunk of LM iterations of every lane inside one
 device program (``voldor_tpu/falign/solver.py:396`` ``lm_chunk_pairs``: a
 vmapped ``lax.while_loop`` over ``_make_lm_step``'s body, :184-235, whose
-residual, analytic Jacobian and ``_joint_normal_eq`` XLA fuses). Here one
-batched iteration is three launches:
+residual, analytic Jacobian and ``_joint_normal_eq`` XLA fuses). Here too a
+chunk is one launch:
 
-* ``lm_propose`` — per lane: the gauge weight, the damped carried system,
+* ``lm_chunk`` -- up to n LM iterations of every lane, one thread-block
+  cluster a lane: per iteration the gauge weight, the damped carried system,
   its Cholesky factor (identity where it fails), two triangular solves, the
-  masked step and the trial parameters; lanes that are done or out of
-  budget (``it >= it_end``) are marked inactive and keep their state;
-* ``linearize_partials`` — per pair evaluation and tile of the strided ref
-  grid, the residual, its analytic 18-column gradient and their Gram
-  reductions (see PairBlocks), summed over the tile's pixels in a fixed
-  order into a scratch tensor (no float atomics: two launches on the same
-  inputs are bitwise equal); inactive lanes' pairs are skipped;
-* ``lm_accept`` — per lane: the tiles' partial sums added in a fixed order,
-  the lane's normal equations assembled from its pairs' blocks, the accept
-  or reject of the trial, the gain-ratio damping, the stopping rules and
-  the next state (frozen lanes copied through).
-
-``linearize`` (the partials reduced per pair, a fourth kernel:
-``reduce_partials``) and ``score_sums`` (the linearise kernel's scores mode)
-serve the phase start, the covariances and the scores.
+  masked step and the trial; the residual, its analytic 18-column gradient
+  and their Gram reductions (see PairBlocks) at the trial, summed across
+  the cluster in a fixed order (no float atomics: two launches on the same
+  inputs are bitwise equal); the accept or reject, the gain-ratio damping,
+  the stopping rules. Lanes that are done or out of budget keep their state.
+* ``linearize_packed`` -- the linearisation at given parameters, one
+  cluster a pair evaluation, the per-pair sums written directly (190, or 2
+  in scores mode); ``linearize`` and ``score_sums`` serve the phase start,
+  the covariances and the scores through it.
 
 For CPU tensors every wrapper calls the plain version
 (``falign.residual.pair_normal_blocks`` / ``pair_score_sums``,
-``lm_propose_reference``, ``lm_accept_reference``); for CUDA tensors it
-launches its kernel or raises. The wrappers take the solver's LaneProblem
-and PairLmState (``falign/solver.py``) and return a state of the type they
-were given.
+``lm_chunk_reference``: ``lm_propose_reference`` -> the blocks ->
+``lm_accept_reference`` per iteration); for CUDA tensors it launches its
+kernel or raises. The wrappers take the solver's LaneProblem and
+PairLmState (``falign/solver.py``) and return a state of the type they were
+given.
 """
 
 from __future__ import annotations
@@ -47,31 +43,37 @@ from voldor_tpu_torch.ops import _build
 # Launches since the last reset (plain ints; chip_smoke.py reads them to
 # show that the main path went through the kernels).
 linearize_launches = 0  # falign_linearize_kernel, both modes
-reduce_launches = 0  # falign_reduce_kernel
-lm_propose_launches = 0
-lm_accept_launches = 0
+lm_chunk_launches = 0  # falign_lm_chunk_kernel
 
-TILE = 256  # pixels of the strided grid per block of the linearise kernel
+THREADS = 512  # threads of a block; pixels of the strided grid per tile
+# blocks of a cluster: 16, above the portable 8, because it shortens a
+# batched LM iteration of the 4-lane batches by a quarter or more on an
+# H100 (chip_smoke.py phase 6 times both; PERF.md)
+CLUSTER = 16
+# the one-shot linearise's clusters when not all of a launch's clusters of
+# CLUSTER blocks fit on the card at once (an H100 holds 7 of the gradient
+# mode's: a 4-pair batch's 8 would run in two waves; PERF.md)
+CLUSTER_PORTABLE = 8
+PAIR_GROUP = 16  # pairs the chunk kernel linearises between two cluster barriers
 N_GRAM = 190  # the upper triangle of the 19 x 19 Gram matrix of [r, Jr, Jt]
 N_SCORES = 2  # [visible pixels, sum of 1 - min(r^2, bound) / bound]
-N_INFO = 8  # a proposal's per-lane scalars, in this order:
-INFO = ("w2", "pred", "cur_cost", "step_inf", "ok", "active")
+N_CONST_WORDS = 96  # 4-byte words of a pair's constants (PairConsts)
+INFO = ("w2", "pred", "cur_cost", "step_inf", "ok", "active")  # a proposal's per-lane scalars
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_LIN_ARGTYPES = ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _P] + [_I] * 6 + [_F] * 7
+_LIN_ARGTYPES = ([_P, _P, _I, _I, _I, _P, _P, _P, _P] + [_I] * 6 + [_F] * 7
                  + [_P, _I, _P])
-_RED_ARGTYPES = [_P, _P, _I, _I, _I, _P]
-_PROPOSE_ARGTYPES = [_P] * 8 + [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P]
-_ACCEPT_ARGTYPES = [_P] * 8 + [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I] + [_P] * 8 + [_P]
+_CHUNK_ARGTYPES = ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P] + [_I] * 6 + [_F] * 6
+                   + [_P] * 19 + [_I, _P])
 
 
 class Proposal(NamedTuple):
-    """What lm_propose hands the linearise and accept steps."""
+    """What lm_propose_reference hands the linearisation and the accept."""
 
     trial: torch.Tensor  # (L, N, 9) trial parameters (the current ones where inactive)
-    info: torch.Tensor  # (L, N_INFO) float: INFO's scalars, ok and active as 0 / 1
+    info: torch.Tensor  # (L, 6) float: INFO's scalars, ok and active as 0 / 1
     active: torch.Tensor  # (L,) int32: the lane runs this iteration
 
 
@@ -81,8 +83,9 @@ def grid_size(h: int, w: int, stride: int) -> tuple[int, int]:
 
 
 def n_tiles(h: int, w: int, stride: int) -> int:
+    """Tiles of THREADS pixels of a pair's strided grid."""
     hs, ws = grid_size(h, w, stride)
-    return -(-(hs * ws) // TILE)
+    return -(-(hs * ws) // THREADS)
 
 
 _gram_index: dict = {}
@@ -159,10 +162,14 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
+def _dev_key(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 def _check_problem(prob, params, lanes, dev):
-    """Dtypes, shapes and contiguity of what the linearise kernel reads. The
-    values of lanes and pairs are not read back (that would sync): lanes
-    must index rows l * N of the maps and pairs local frames < N."""
+    """Dtypes, shapes and contiguity of what the kernels read. The values of
+    lanes and pairs are not read back (that would sync): lanes must index
+    rows l * N of the maps and pairs local frames < N."""
     F, h, w, _ = prob.maps.packed.shape
     L, N = params.shape[0], prob.n_frames
     _check(prob.maps.packed, "maps.packed", torch.float32, (F, h, w, 5), dev)
@@ -175,78 +182,96 @@ def _check_problem(prob, params, lanes, dev):
         raise ValueError(f"falign kernels take maps of at least 2 x 2, got {h} x {w}")
 
 
-def linearize_partials(prob, params, lanes, stride: int, active=None, scores: bool = False,
-                       bound: float = 1.0) -> torch.Tensor:
-    """One launch of the linearise kernel (CUDA tensors only): per pair
-    evaluation b = l * np + p and tile t of the strided grid, the tile's
-    Gram sums (B, T, 190), or with ``scores`` the scores-mode sums
-    (B, T, 2). ``active`` (L,) int32: the pairs of a lane whose flag is 0
-    are skipped (their rows are left unwritten)."""
+_clusters: dict = {}
+
+
+def _max_clusters(dev, entry: str, args: tuple, C: int) -> int:
+    """How many clusters of C blocks the device holds at once
+    (cudaOccupancyMaxActiveClusters, through the C entry point `entry`,
+    which also sets the kernel's launch attributes): queried once per
+    device, shape and C, before the first launch."""
+    key = (_dev_key(dev), entry, args, C)
+    if key not in _clusters:
+        out = ctypes.c_int(0)
+        fn = _build.function(entry, [_I] * (len(args) + 1) + [ctypes.POINTER(_I)])
+        with torch.cuda.device(dev):
+            _raise_on(fn(*args, C, ctypes.byref(out)), f"{entry} (cluster of {C})")
+        _clusters[key] = out.value
+    return _clusters[key]
+
+
+def _check_cluster(dev, entry: str, args: tuple, C: int, smem: int, what: str):
+    """Raise unless the device can hold one cluster of C blocks of THREADS
+    threads with `smem` bytes of shared memory each."""
+    n = _max_clusters(dev, entry, args, C)
+    if n < 1:
+        raise RuntimeError(
+            f"{what}: a cluster of {C} blocks of {THREADS} threads with {smem} bytes of "
+            f"shared memory each cannot be scheduled on this device "
+            f"(cudaOccupancyMaxActiveClusters = {n})")
+
+
+def lin_smem_bytes(n_pairs: int, scores: bool = False) -> int:
+    """Dynamic shared memory of a block of the linearise kernel
+    (csrc/falign_common.cuh:lin_smem_floats): the staged tile, the block's
+    sums and the pairs' constants."""
+    width = N_SCORES if scores else N_GRAM
+    return 4 * (THREADS * 20 + -(-(n_pairs * width) // 4) * 4 + n_pairs * N_CONST_WORDS)
+
+
+def linearize_packed(prob, params, lanes, stride: int, scores: bool = False,
+                     bound: float = 1.0) -> torch.Tensor:
+    """One launch of the linearise kernel (CUDA tensors only), a cluster a
+    pair evaluation: per pair evaluation b = l * np + p, its 190 packed Gram
+    sums (B, 190), or with ``scores`` the scores-mode sums (B, 2). Clusters
+    of CLUSTER blocks where the card holds all B at once, else of
+    CLUSTER_PORTABLE."""
     dev = _cuda_device(params, "falign_linearize")
     _check_problem(prob, params, lanes, dev)
     F, h, w, _ = prob.maps.packed.shape
     L, N, n_p = params.shape[0], prob.n_frames, prob.pairs.shape[0]
-    if active is not None:
-        _check(active, "active", torch.int32, (L,), dev)
-    T = n_tiles(h, w, stride)
-    width = N_SCORES if scores else N_GRAM
-    out = torch.empty((L * n_p, T, width), dtype=torch.float32, device=dev)
+    entry, shape = "falign_linearize_max_clusters", (int(scores),)
+    C = CLUSTER if _max_clusters(dev, entry, shape, CLUSTER) >= L * n_p else CLUSTER_PORTABLE
+    _check_cluster(dev, entry, shape, C, lin_smem_bytes(1, scores), "falign_linearize")
+    out = torch.empty((L * n_p, N_SCORES if scores else N_GRAM), dtype=torch.float32, device=dev)
     fx, fy, cx, cy, vbf, crw = prob.scalars
     global linearize_launches
     fn = _build.function("falign_linearize_launch", _LIN_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(prob.maps.packed.data_ptr(), prob.maps.weights.data_ptr(), F, h, w,
                  params.data_ptr(), lanes.data_ptr(), prob.pairs.data_ptr(),
-                 prob.dim_mask.data_ptr(), None if active is None else active.data_ptr(),
-                 L, N, n_p, int(stride), int(bool(prob.use_photo)), int(scores),
-                 fx, fy, cx, cy, vbf, crw, float(bound), out.data_ptr(), T, _stream(dev))
+                 prob.dim_mask.data_ptr(), L, N, n_p, int(stride), int(bool(prob.use_photo)),
+                 int(scores), fx, fy, cx, cy, vbf, crw, float(bound), out.data_ptr(), C,
+                 _stream(dev))
     _raise_on(err, "falign_linearize")
     linearize_launches += 1
     return out
 
 
-def reduce_partials(part: torch.Tensor) -> torch.Tensor:
-    """(B, T, W) partial sums -> (B, W), the tiles added in order. CPU
-    tensors: torch.sum over the tiles; CUDA tensors: one launch of the
-    reduce kernel."""
-    if part.device.type == "cpu":
-        return torch.sum(part, dim=1)
-    dev = _cuda_device(part, "falign_reduce")
-    if part.dim() != 3:
-        raise ValueError(f"falign_reduce takes (B, T, W) partials, got {tuple(part.shape)}")
-    _check(part, "partials", torch.float32, part.shape, dev)
-    B, T, W = part.shape
-    out = torch.empty((B, W), dtype=torch.float32, device=dev)
-    global reduce_launches
-    fn = _build.function("falign_reduce_launch", _RED_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(part.data_ptr(), out.data_ptr(), B, T, W, _stream(dev))
-    _raise_on(err, "falign_reduce")
-    reduce_launches += 1
-    return out
+def _plain_blocks(prob, params, lanes, stride: int) -> PairBlocks:
+    return pair_normal_blocks(params, lanes, prob.pairs, prob.dim_mask, prob.maps, *prob.intr,
+                              prob.vbf, prob.crw, prob.use_photo, stride)
 
 
 def linearize(prob, params, lanes, stride: int) -> PairBlocks:
     """Per pair evaluation of the lanes, the linearisation's blocks at
     params (PairBlocks, B = L * np): the plain version on the CPU; on the
-    card the linearise and reduce kernels."""
+    card one launch of the linearise kernel."""
     if params.device.type == "cpu":
-        return pair_normal_blocks(params, lanes, prob.pairs, prob.dim_mask, prob.maps, *prob.intr,
-                                  prob.vbf, prob.crw, prob.use_photo, stride)
-    return unpack_blocks(reduce_partials(linearize_partials(prob, params, lanes, stride)))
+        return _plain_blocks(prob, params, lanes, stride)
+    return unpack_blocks(linearize_packed(prob, params, lanes, stride))
 
 
 def score_sums(prob, params, lanes, stride: int, bound: float):
     """Per pair evaluation, the visible pixels of the unweighted residual
     and the sum over them of 1 - min(r^2, bound) / bound: two (B,) float
-    tensors. The plain version on the CPU; on the card the linearise
-    kernel's scores mode and the reduce kernel."""
+    tensors. The plain version on the CPU; on the card one launch of the
+    linearise kernel's scores mode."""
     if params.device.type == "cpu":
         return pair_score_sums(params, lanes, prob.pairs, prob.maps, *prob.intr, prob.vbf,
                                prob.crw, prob.use_photo, stride,
                                torch.tensor(float(bound), dtype=params.dtype))
-    s = reduce_partials(linearize_partials(prob, params, lanes, stride, scores=True,
-                                           bound=bound))
+    s = linearize_packed(prob, params, lanes, stride, scores=True, bound=bound)
     return s[:, 0], s[:, 1]
 
 
@@ -260,7 +285,7 @@ def _gauge_sums(params, U):
 
 
 def lm_propose_reference(prob, st, it_end) -> Proposal:
-    """The propose kernel's plain version: the damped, gauge-regularised
+    """The chunk kernel's proposal, plain: the damped, gauge-regularised
     solve of every lane's carried system (``solver.py:184-200``), and the
     lane's activity: it < it_end and not done."""
     U = prob.gauge_U
@@ -293,14 +318,12 @@ def lm_propose_reference(prob, st, it_end) -> Proposal:
     pred = 0.5 * (torch.sum(sm * (lam[:, None] * diag * sm), dim=-1) + torch.sum(sm * gg, dim=-1))
     step_inf = torch.amax(torch.abs(step_m), dim=(1, 2))
     active = (st.it < it_end) & ~st.done
-    zeros = torch.zeros_like(w2)
-    info = torch.stack([w2, pred, cur_cost, step_inf, ok.to(w2.dtype), active.to(w2.dtype),
-                        zeros, zeros], dim=1)
+    info = torch.stack([w2, pred, cur_cost, step_inf, ok.to(w2.dtype), active.to(w2.dtype)], dim=1)
     return Proposal(trial=trial, info=info, active=active.to(torch.int32))
 
 
 def lm_accept_reference(prob, st, prop: Proposal, blocks: PairBlocks):
-    """The accept kernel's plain version: the trial's normal equations from
+    """The chunk kernel's accept, plain: the trial's normal equations from
     its pairs' blocks, then ``accept_lanes``."""
     return accept_lanes(prob, st, prop, *assemble(blocks, prob.oh_r, prob.oh_t))
 
@@ -311,7 +334,7 @@ def accept_lanes(prob, st, prop: Proposal, trial_cost, H_t, g_t):
     rules (``solver.py:200-235``); lanes that were not active keep their
     state (``solver.py:424-441``)."""
     U = prob.gauge_U
-    w2, pred, cur_cost, step_inf, ok, active = prop.info[:, :6].unbind(1)
+    w2, pred, cur_cost, step_inf, ok, active = prop.info.unbind(1)
     ok, active = ok > 0, active > 0
     trial = prop.trial
     t_sums = _gauge_sums(trial, U)
@@ -336,28 +359,53 @@ def accept_lanes(prob, st, prop: Proposal, trial_cost, H_t, g_t):
                       for a, b in zip(st, new)))
 
 
+def lm_step_reference(prob, st, lanes, stride: int, it_end):
+    """One LM iteration of every lane whose it < it_end and that is not
+    done, in plain torch: propose, the blocks at the trial, accept."""
+    prop = lm_propose_reference(prob, st, it_end)
+    return lm_accept_reference(prob, st, prop, _plain_blocks(prob, prop.trial, lanes, stride))
+
+
+def lm_chunk_reference(prob, st, lanes, stride: int, n: int, it_end=None):
+    """The chunk kernel's plain version: n iterations of lm_step_reference;
+    a lane runs while it < min(its it at entry + n, it_end) and it is not
+    done."""
+    end = st.it + n if it_end is None else torch.minimum(it_end, st.it + n)
+    for _ in range(n):
+        st = lm_step_reference(prob, st, lanes, stride, end)
+    return st
+
+
 # --------------------------------------------------------------------------
-# the LM step: the kernels
+# the LM chunk: the kernel
 # --------------------------------------------------------------------------
 
 _smem_limit: dict = {}
 
 
-def lm_smem_bytes(n_frames: int, n_gauge: int) -> int:
-    """Dynamic shared memory of the larger of the two LM kernels for a lane
-    of n_frames frames and n_gauge gauge rows (csrc/falign_lm.cu)."""
+def lm_smem_bytes(n_frames: int, n_gauge: int, n_pairs: int) -> int:
+    """Dynamic shared memory of a block of the chunk kernel for a lane of
+    n_frames frames, n_gauge gauge rows and n_pairs pairs
+    (csrc/falign_lm.cu:chunk_smem_floats): the region that the damped
+    system and then the cluster linearise of up to PAIR_GROUP pairs take in
+    turn, the lane's vectors and gauge rows, and for D <= 32 its H, the
+    trial's and U^T U (above, H and the trial's in global memory). It grows
+    with D^2, not with the pairs."""
     D = 9 * n_frames
-    return 4 * max(D * D + 3 * D + n_gauge, D * D + D + N_GRAM)
+    region = max(D * (D + 1), lin_smem_bytes(min(n_pairs, PAIR_GROUP)) // 4)
+    lane = 10 * D + n_gauge * D + n_gauge + (3 * D * D if D <= 32 else 0)
+    return 4 * (-(-region // 4) * 4 + lane)
 
 
-def _check_lm_fits(dev, n_frames: int, n_gauge: int):
-    key = dev.index if dev.index is not None else torch.cuda.current_device()
+def _check_lm_fits(dev, n_frames: int, n_gauge: int, n_pairs: int):
+    key = _dev_key(dev)
     if key not in _smem_limit:
         out = ctypes.c_int(0)
-        _raise_on(_build.function("falign_lm_smem_limit", [_I, ctypes.POINTER(_I)])(
-            key, ctypes.byref(out)), "falign_lm_smem_limit")
+        with torch.cuda.device(dev):
+            _raise_on(_build.function("falign_lm_smem_limit", [_I, ctypes.POINTER(_I)])(
+                key, ctypes.byref(out)), "falign_lm_smem_limit")
         _smem_limit[key] = out.value
-    need = lm_smem_bytes(n_frames, n_gauge)
+    need = lm_smem_bytes(n_frames, n_gauge, n_pairs)
     if need > _smem_limit[key]:
         raise RuntimeError(
             f"falign LM kernels: a lane of {n_frames} frames ({9 * n_frames} parameters) needs "
@@ -379,85 +427,63 @@ def _state_ptrs(st):
     return [t.data_ptr() for t in (st.params, st.lam, st.cost, st.H, st.g, st.it, st.done, st.w2)]
 
 
-def lm_propose(prob, st, it_end) -> Proposal:
-    """The propose step of every lane: the plain version on the CPU, one
-    launch of the propose kernel on the card."""
+def lm_chunk(prob, st, lanes, stride: int, n: int, it_end=None):
+    """Up to n LM iterations of every lane with no host read: a lane runs
+    while it < (its it at entry) + n (and < it_end where given) and it is
+    not done; the others keep their state (the vmapped ``lax.while_loop`` of
+    ``solver.py:424-441``). CPU tensors: lm_chunk_reference. CUDA tensors:
+    one launch of the chunk kernel, one cluster of CLUSTER blocks a lane,
+    which writes the next state into new tensors."""
     if st.params.device.type == "cpu":
-        return lm_propose_reference(prob, st, it_end)
-    dev = _cuda_device(st.params, "falign_lm_propose")
-    L, N = st.params.shape[0], prob.n_frames
-    D = 9 * N
-    U = prob.gauge_U
-    _check_state(st, L, D, dev)
-    _check(it_end, "it_end", torch.int32, (L,), dev)
-    _check(U, "gauge_U", torch.float32, (U.shape[0], D), dev)
-    _check(prob.dim_mask, "dim_mask", torch.float32, (N, 9), dev)
-    _check_lm_fits(dev, N, U.shape[0])
-    trial = torch.empty_like(st.params)
-    info = torch.empty((L, N_INFO), dtype=torch.float32, device=dev)
-    active = torch.empty((L,), dtype=torch.int32, device=dev)
-    global lm_propose_launches
-    fn = _build.function("falign_lm_propose_launch", _PROPOSE_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(*_state_ptrs(st), it_end.data_ptr(), U.data_ptr(), U.shape[0],
-                 prob.dim_mask.data_ptr(), L, N, trial.data_ptr(), info.data_ptr(),
-                 active.data_ptr(), _stream(dev))
-    _raise_on(err, "falign_lm_propose")
-    lm_propose_launches += 1
-    return Proposal(trial=trial, info=info, active=active)
-
-
-def lm_accept(prob, st, prop: Proposal, lin):
-    """The accept step of every lane: the plain version on the CPU (lin:
-    the trial's PairBlocks); on the card (lin: the linearise kernel's
-    (L * np, T, 190) partials) one launch of the accept kernel, which
-    writes the next state into new tensors."""
-    if st.params.device.type == "cpu":
-        return lm_accept_reference(prob, st, prop, lin)
-    dev = _cuda_device(st.params, "falign_lm_accept")
+        return lm_chunk_reference(prob, st, lanes, stride, n, it_end)
+    dev = _cuda_device(st.params, "falign_lm_chunk")
     L, N, n_p = st.params.shape[0], prob.n_frames, prob.pairs.shape[0]
     D = 9 * N
     U = prob.gauge_U
+    K = U.shape[0]
+    _check_problem(prob, st.params, lanes, dev)
     _check_state(st, L, D, dev)
-    _check(prop.trial, "trial", torch.float32, (L, N, 9), dev)
-    _check(prop.info, "info", torch.float32, (L, N_INFO), dev)
-    _check(prop.active, "active", torch.int32, (L,), dev)
-    if lin.dim() != 3:
-        raise ValueError(f"falign_lm_accept takes (B, T, 190) partials, got {tuple(lin.shape)}")
-    _check(lin, "partials", torch.float32, (L * n_p, lin.shape[1], N_GRAM), dev)
-    _check(prob.pairs, "pairs", torch.int64, (n_p, 2), dev)
-    _check(U, "gauge_U", torch.float32, (U.shape[0], D), dev)
-    _check_lm_fits(dev, N, U.shape[0])
+    _check(U, "gauge_U", torch.float32, (K, D), dev)
+    if it_end is not None:
+        _check(it_end, "it_end", torch.int32, (L,), dev)
+    if n < 0:
+        raise ValueError(f"falign_lm_chunk: n = {n} iterations")
+    _check_lm_fits(dev, N, K, n_p)
+    _check_cluster(dev, "falign_lm_max_clusters", (N, K, n_p), CLUSTER, lm_smem_bytes(N, K, n_p),
+                   "falign_lm_chunk")
+    F, h, w, _ = prob.maps.packed.shape
+    fx, fy, cx, cy, vbf, crw = prob.scalars
     out = type(st)(*(torch.empty_like(a) for a in st))
-    global lm_accept_launches
-    fn = _build.function("falign_lm_accept_launch", _ACCEPT_ARGTYPES)
+    # the trial's H of a lane above 32 parameters (it does not fit block 0's
+    # shared memory beside the lane's damped system)
+    work = torch.empty((L, D, D), dtype=torch.float32, device=dev) if D > 32 else None
+    global lm_chunk_launches
+    fn = _build.function("falign_lm_chunk_launch", _CHUNK_ARGTYPES)
     with torch.cuda.device(dev):
-        err = fn(*_state_ptrs(st), prop.trial.data_ptr(), prop.info.data_ptr(),
-                 prop.active.data_ptr(), lin.data_ptr(), lin.shape[1], prob.pairs.data_ptr(),
-                 n_p, U.data_ptr(), U.shape[0], L, N, *_state_ptrs(out), _stream(dev))
-    _raise_on(err, "falign_lm_accept")
-    lm_accept_launches += 1
+        err = fn(prob.maps.packed.data_ptr(), prob.maps.weights.data_ptr(), F, h, w,
+                 lanes.data_ptr(), prob.pairs.data_ptr(), prob.dim_mask.data_ptr(), U.data_ptr(),
+                 K, None if it_end is None else it_end.data_ptr(), L, N, n_p, int(n), int(stride),
+                 int(bool(prob.use_photo)), fx, fy, cx, cy, vbf, crw, *_state_ptrs(st),
+                 *_state_ptrs(out), None if work is None else work.data_ptr(), None, None,
+                 CLUSTER, _stream(dev))
+    _raise_on(err, "falign_lm_chunk")
+    lm_chunk_launches += 1
     return out
 
 
 def lm_iteration(prob, st, lanes, stride: int, it_end):
     """One damped-LM iteration of every lane whose it < it_end and that is
-    not done; the others keep their state. CPU: the three plain versions;
-    the card: propose, linearise and accept, three launches and no host
-    read."""
-    prop = lm_propose(prob, st, it_end)
+    not done; the others keep their state. CPU: lm_step_reference; the
+    card: the chunk kernel with n = 1, one launch and no host read."""
     if st.params.device.type == "cpu":
-        lin = linearize(prob, prop.trial, lanes, stride)
-    else:
-        lin = linearize_partials(prob, prop.trial, lanes, stride, active=prop.active)
-    return lm_accept(prob, st, prop, lin)
+        return lm_step_reference(prob, st, lanes, stride, it_end)
+    return lm_chunk(prob, st, lanes, stride, 1, it_end=it_end)
 
 
 def reset_counts():
-    global linearize_launches, reduce_launches, lm_propose_launches, lm_accept_launches
-    linearize_launches = reduce_launches = lm_propose_launches = lm_accept_launches = 0
+    global linearize_launches, lm_chunk_launches
+    linearize_launches = lm_chunk_launches = 0
 
 
 def read_counts() -> dict:
-    return dict(linearize=linearize_launches, reduce=reduce_launches,
-                lm_propose=lm_propose_launches, lm_accept=lm_accept_launches)
+    return dict(linearize=linearize_launches, lm_chunk=lm_chunk_launches)
