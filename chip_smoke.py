@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--parent DIR]
 
 With --parent DIR (a checkout of another commit, e.g. the parent unpacked
-from git archive), phase 6 also times that checkout's fb_smooth kernel
-beside this one's, through tools/fb_smooth_ab.py (each checkout's own
-wrapper, in processes of their own).
+from git archive), phase 6 also times that checkout's fb_smooth kernel and
+cost kernel beside this one's, through tools/fb_smooth_ab.py and
+tools/cost_kernel_ab.py (each checkout's own wrappers, in processes of
+their own), with the other cost kernel's issue-rate floor.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -23,12 +24,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-5; beside it, the error against fb_smooth_chunked_reference (the
    kernel's own arithmetic in plain torch), printed;
 4. cost kernel, score mode vs plain: the normalised costs against the plain
-   composition at the main path's shapes (185x613, N=5, K in {1,4,10}, D in
-   {0,1,2,3} -- D=3 with the stereo disparity slot --, active_n in {5,3}),
-   and at the demo's default abs_resize_factor 0.5 (K=10, N=5, D=2):
-   identical +inf pattern, finite values within rtol = atol = 1e-5;
+   composition at the main path's shapes (185x613, N=5, K in {1,4,10,16},
+   D in {0,1,2,3} -- D=3 with the stereo disparity slot --, active_n in
+   {5,3}), at wider ones (COST_WIDE_CASES: N of 1 and 8, D of 4, windows
+   cut short) and at the demo's default abs_resize_factor 0.5 (K=10, N=5,
+   D=2): two launches bitwise equal, identical +inf pattern, finite values
+   within rtol = atol = 1e-5;
 5. cost kernel, accept mode vs plain: a random (K=10), a global (K=4) and a
-   jump (K=4) proposal batch at N=5, D=2: the accepted depth equals the
+   jump (K=4) proposal batch at N=5, D=2, and a K=16 batch at N=8, D=4
+   with 30% of its candidates masked: the accepted depth equals the
    plain composition's at >= 99.9% of pixels; the written cost equals the
    plain one (+inf pattern identical, within 1e-5 + 1e-5 relative) where
    the depths agree, and everywhere the plain cost of the kernel's own
@@ -36,11 +40,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    pick's (a near-tie);
 6. device-only times (CUDA events around 100 back-to-back launches of the
    bound C call, no wrapper in between) of the fb_smooth kernel and the
-   cost kernel in accept and score mode at K = 1, 4, 10, beside their
+   cost kernel in score mode and in accept mode with and without masks
+   (COST_SHAPES) at K = 1, 4, 10, 16, beside their
    plain versions and their bounds: the larger of the bytes over 3.35 TB/s
    and the least operations of the function on this run's data (counted
    from its plain formula, see least_ops) over the peak FP32 and
-   special-function rates; fb_smooth's serial floor (the latency of one
+   special-function rates; the cost kernel's launch geometry (the entry
+   point's held to ops/cost.py:geometry), registers, spills, resident warps
+   per SM and waves per launch, and its issue-rate floor (its own SASS
+   instructions per term, from the term probes' builds, at the FP32 issue
+   rate), and
+   whether torch.pow(v, -2.0) on the card is bitwise 1 / (v * v) (the
+   kernel's premise); fb_smooth's serial floor (the latency of one
    forward and one backward step, timed on one thread, times h + w), the
    chunked design's chain floor (compositions and steps per line pass,
    each timed on one thread) and, with --parent, the other checkout's
@@ -62,7 +73,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    tensor must lie on the card, the cost kernel must have been launched at
    least 8 times per flow-fed EM iteration and the fb_smooth kernel at
    least once, and the 16-frame trajectory must pass the bench's gate,
-   Sim3 ATE < 0.02 * scene extent;
+   Sim3 ATE < 0.02 * scene extent; the cost kernel's launches by shape
+   (mode, K, masks) and by depth round weight phase 6's times into a
+   flow-fed round's cost time (and, with --parent, each checkout's);
 8. no host sync: the same three windows with every call of the kernel
    wrappers (fb_smooth, cost score, cost accept) run under
    torch.cuda.set_sync_debug_mode("error");
@@ -192,6 +205,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import inspect
@@ -334,9 +348,15 @@ def phase_build():
 
 
 def short_name(mangled):
-    m = re.search(r"cost_kernelILi(\d+)ELb([01])E", mangled)
+    m = re.search(r"cost_kernelILi(\d+)ELb([01])E", mangled)  # an older checkout's thread-per-pixel kernel
     if m:
         return f"cost_kernel<KT={m.group(1)}, {'accept' if m.group(2) == '1' else 'score'}>"
+    m = re.search(r"cost_kernelILb([01])E", mangled)
+    if m:
+        return f"cost_kernel<{'accept' if m.group(1) == '1' else 'score'}>"
+    m = re.search(r"cost_term_probe_kernelILi(\d)ELi(\d)E", mangled)
+    if m:
+        return f"cost_term_probe<{m.group(1)},{m.group(2)}>"
     m = re.search(r"falign_linearize_kernelILb([01])E", mangled)
     if m:
         return f"falign_linearize_kernel<{'scores' if m.group(1) == '1' else 'grads'}>"
@@ -345,18 +365,20 @@ def short_name(mangled):
     return m.group(1) if m else mangled
 
 
-def sass_counts():
-    """Static SASS instruction count of every kernel in the library."""
+def sass_counts(library=None, quiet=False):
+    """Static SASS instruction count of every kernel in the library (this
+    tree's, or the one at path `library`)."""
     from voldor_tpu_torch.ops import _build
 
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library or _build.library_path())],
                           check=True, capture_output=True, text=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", sass)
     counts = {short_name(name): len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+[A-Z@]", body))
               for name, body in zip(parts[1::2], parts[2::2])}
     for name, n in counts.items():
-        log(f"[build] SASS {name}: {n} instructions")
+        if not quiet:
+            log(f"[build] SASS {name}: {n} instructions")
     return counts
 
 
@@ -417,6 +439,46 @@ def planes_at(bi, active_n, D, stereo=False, p=None):
     return rig, track, tinb, ps
 
 
+def cost_cands(bi, k):
+    """K candidate maps of the bench scene: the first k of bench_inputs'
+    ten, and at K = 16 six of them again, scaled by 1.03."""
+    import torch
+
+    ca = bi["cands_all"]
+    return (ca[:k] if k <= ca.shape[0] else torch.cat([ca, ca[1:k - 9] * 1.03])).contiguous()
+
+
+def wide_planes(scene, bi, n, D, active_n):
+    """(planes, prior samples) of an n-frame window of the bench scene
+    (n up to 8) with D priors (up to 4: bench_inputs' three, and the
+    frame-0 depth x 0.97 at the identity pose)."""
+    import torch
+
+    from voldor_tpu_torch.ops.lie import so3_exp
+    from voldor_tpu_torch.vo import em
+
+    _, _, poses, flows, _, _, _ = scene
+    dev, p = bi["d0"].device, bi["p"]
+    fl = torch.as_tensor(flows[:n], device=dev)
+    Rs = so3_exp(torch.as_tensor(poses[:n, :3], device=dev))
+    ts = torch.as_tensor(poses[:n, 3:6], device=dev)
+    rig = em.update_rigidness(bi["d0"], fl, Rs, ts, active_n, p).contiguous()
+    track, tinb = em.precompute_obs_tracks(fl, active_n, p)
+    ps = None
+    if D:
+        eye = torch.eye(3, device=dev)[None]
+        ps = em.precompute_prior_samples(
+            bi["d0"], torch.cat([bi["priors"], bi["d0"][None] * 0.97])[:D],
+            torch.full((D, H, W), 0.9, device=dev), torch.cat([bi["confs"], bi["confs"][:1]])[:D],
+            torch.cat([bi["dp_Rs"], eye])[:D], torch.cat([bi["dp_ts"], torch.zeros_like(bi["dp_ts"][:1])])[:D],
+            p)
+    return (track, tinb, rig, Rs, ts, active_n, p), ps
+
+
+# (N, active_n, D, K) beside the bench window's: one frame, eight frames,
+# four priors, a window cut short
+COST_WIDE_CASES = ((1, 1, 4, 16), (8, 8, 4, 16), (8, 6, 0, 10), (8, 8, 4, 1), (8, 3, 2, 4))
+
 FB_ODD_SHAPES = [(2, 1, W), (2, H, 1), (3, 37, W), (3, H, 61), (2, 37, 61), (1, 1, 1)]
 
 
@@ -448,7 +510,31 @@ def phase_fb(np, torch, bi):
     return max_err, max_chunk
 
 
-def phase_score(np, torch, bi):
+def score_case(torch, what, cands, planes, ps):
+    """One score-mode launch against the plain composition: the +inf
+    pattern identical, finite values within RTOL / ATOL. Returns the
+    largest absolute error."""
+    from voldor_tpu_torch.ops import cost as cost_mod
+
+    got = cost_mod.cost_map_score(cands, *planes, prior_samples=ps)
+    again = cost_mod.cost_map_score(cands, *planes, prior_samples=ps)
+    ref = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(cands, *planes, prior_samples=ps))
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"two launches differ ({what})")
+    fin = torch.isfinite(ref)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError(f"+inf pattern differs ({what})")
+    g, r = got[fin], ref[fin]
+    bad = (torch.abs(g - r) > ATOL + RTOL * torch.abs(r)).sum().item()
+    err = float(torch.abs(g - r).max()) if g.numel() else 0.0
+    log(f"[score] {what}: finite {int(fin.sum())}/{fin.numel()} max_abs_err {err:.3e} out-of-tol {bad}")
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version ({what})")
+    return err
+
+
+def phase_score(np, torch, bi, scene):
     """Cost kernel in score mode against the plain composition."""
     from voldor_tpu_torch.ops import cost as cost_mod
 
@@ -457,23 +543,14 @@ def phase_score(np, torch, bi):
     for active_n in (5, 3):
         for D in (0, 1, 2, 3):
             rig, track, tinb, ps = planes_at(bi, active_n, D, stereo=D == 3)
-            for k in (1, 4, 10):
-                cands = cands_all[:k].contiguous()
-                args = (cands, track, tinb, rig, Rs, ts, active_n, p)
-                got = cost_mod.cost_map_score(*args, prior_samples=ps)
-                ref = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(*args, prior_samples=ps))
-                torch.cuda.synchronize()
-                fin = torch.isfinite(ref)
-                if not torch.equal(fin, torch.isfinite(got)):
-                    raise AssertionError(f"+inf pattern differs (K={k}, D={D}, active_n={active_n})")
-                g, r = got[fin], ref[fin]
-                bad = (torch.abs(g - r) > ATOL + RTOL * torch.abs(r)).sum().item()
-                err = float(torch.abs(g - r).max()) if g.numel() else 0.0
+            for k in (1, 4, 10, 16):
+                err = score_case(torch, f"K={k} D={D} active_n={active_n}", cost_cands(bi, k),
+                                 (track, tinb, rig, Rs, ts, active_n, p), ps)
                 max_err = max(max_err, err)
-                log(f"[score] K={k} D={D} active_n={active_n}: finite {int(fin.sum())}/{fin.numel()} "
-                    f"max_abs_err {err:.3e} out-of-tol {bad}")
-                if bad:
-                    raise AssertionError(f"kernel disagrees with its plain version (K={k}, D={D}, active_n={active_n})")
+    for n, active_n, D, k in COST_WIDE_CASES:
+        planes, ps = wide_planes(scene, bi, n, D, active_n)
+        err = score_case(torch, f"K={k} N={n} D={D} active_n={active_n}", cost_cands(bi, k), planes, ps)
+        max_err = max(max_err, err)
     # the demo's default abs_resize_factor (--resize 0.5): the rigidness,
     # tracks, prior samples and costs all at 0.5
     p05 = p._replace(abs_resize_factor=0.5)
@@ -520,8 +597,10 @@ def accept_batches(torch, bi, depth):
             ("jump", torch.stack(jc), torch.stack(jm))]
 
 
-def phase_accept(np, torch, bi):
-    """Cost kernel in accept mode against the plain composition, N=5, D=2."""
+def phase_accept(np, torch, bi, scene):
+    """Cost kernel in accept mode against the plain composition: the depth
+    round's three batches at N=5, D=2, and a masked K=16 batch at N=8,
+    D=4."""
     from voldor_tpu_torch.ops import cost as cost_mod
 
     p, Rs, ts = bi["p"], bi["Rs"], bi["ts"]
@@ -529,10 +608,15 @@ def phase_accept(np, torch, bi):
     planes = (track, tinb, rig, Rs, ts, WINDOW, p)
     jit = 1.0 + 0.1 * (torch.rand((H, W), generator=bi["gen"], device="cuda") - 0.5)
     depth = (bi["d0"] * jit).contiguous()
-    cost = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(
-        depth[None], *planes, prior_samples=ps))[0]
+    batches = [(name, cands, masks, planes, ps) for name, cands, masks in accept_batches(torch, bi, depth)]
+    planes8, ps8 = wide_planes(scene, bi, 8, 4, 8)
+    c16 = cost_cands(bi, 16)
+    m16 = torch.rand(c16.shape, generator=bi["gen"], device="cuda") < 0.7
+    batches.append(("wide N=8 D=4 masked", c16, m16, planes8, ps8))
     worst = 1.0
-    for name, cands, masks in accept_batches(torch, bi, depth):
+    for name, cands, masks, planes, ps in batches:
+        cost = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(
+            depth[None], *planes, prior_samples=ps))[0]
         costs = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(
             cands, *planes, prior_samples=ps))
         d_ref, c_ref = cost_mod.accept_reference(depth, cost, costs, cands, masks)
@@ -696,10 +780,127 @@ def parent_times(parent):
     return json.loads(r.stdout.splitlines()[-1])
 
 
+COST_TIMED_K = (1, 4, 10, 16)
+# the launch shapes phase 6 times: (mode, K, masks given)
+COST_SHAPES = tuple((m, k, masked) for k in COST_TIMED_K
+                    for m, masked in (("score", False), ("accept", False), ("accept", True)))
+
+
+def shape_name(shape):
+    mode, k, masked = shape
+    return f"{mode} K={k}" + (" masked" if masked else "")
+
+
+def shift_masks(torch, depth, k):
+    """k masks of the jump-flood family's kind (vo/em.py:optimize_depth_batched):
+    candidate i takes the neighbour (i // 4 + 1) pixels away in direction
+    i % 4, kept where that neighbour is inside the image."""
+    from voldor_tpu_torch.vo import em
+
+    return torch.stack([em._shift_depth(depth, sy * (i // 4 + 1), sx * (i // 4 + 1))[1]
+                        for i, (sy, sx) in ((i, em._LOCAL_DIRS[i % 4]) for i in range(k))])
+
+
+def depth_round_ms(ms_by_shape, shapes, rounds):
+    """The device time of one depth round's cost launches: each launch shape
+    the main path ran (``shapes``: counts by shape_name, read_counts' of the
+    wrapper's ``cost_launch_shapes``) at its time in ``ms_by_shape``, over
+    the main path's ``rounds`` depth rounds that launch it."""
+    missing = [name for name in shapes if name not in ms_by_shape]
+    if missing:
+        raise AssertionError(f"the main path launched the cost kernel as {missing}, "
+                             f"which phase 6 does not time")
+    return sum(n * ms_by_shape[name] for name, n in shapes.items()) / rounds
+
+
+def pow_check(torch, n=1 << 22):
+    """Whether torch.pow(v, -2.0) on the card is bitwise 1 / (v * v) (IEEE
+    division), the premise of the kernel's (1 + u^-c)^-2: v = 1 + u^-c
+    over n draws of u (log-uniform in e^-30..e^30) and c (the Fisk shape's
+    range), and n uniform draws of v in [1, 1e6]."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    u = torch.exp(torch.empty(n, device="cuda").uniform_(-30.0, 30.0, generator=gen))
+    c = torch.empty(n, device="cuda").uniform_(0.78, 0.9956, generator=gen)
+    v = torch.cat([1.0 + torch.pow(u, -c), torch.empty(n, device="cuda").uniform_(1.0, 1e6, generator=gen)])
+    a = torch.pow(v, -2.0)
+    b = torch.ones_like(v) / (v * v)
+    differ = int((a != b).sum())
+    log(f"[times] torch.pow(v, -2.0) on the card against 1 / (v * v), {v.numel()} draws: "
+        f"{differ} differ (bitwise equal {differ == 0})")
+    return dict(draws=v.numel(), differ=differ)
+
+
+def term_instructions(torch, sass, p):
+    """SASS instructions of one flow term and one prior term: the
+    differences between the term probes' builds (2 flow terms a loop
+    iteration against 1, 2 prior terms against 1); the probes are launched
+    once to check they run."""
+    from voldor_tpu_torch.ops import _build
+    from voldor_tpu_torch.ops import cost as cost_mod
+
+    base = sass["cost_term_probe<1,1>"]
+    ins = {"flow": sass["cost_term_probe<2,1>"] - base, "prior": sass["cost_term_probe<1,2>"] - base}
+    fn = _build.function("cost_term_probe_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                         + [ctypes.POINTER(cost_mod._CostParams), ctypes.c_void_p])
+    prm = cost_mod._CostParams()
+    prm.fx, prm.fy, prm.cx, prm.cy = p.fx, p.fy, p.cx, p.cy
+    prm.lam, prm.arf, prm.bf, prm.omega = p.lam, p.abs_resize_factor, p.basefocal, p.omega
+    data = torch.tensor([10.0, 5.0, 0.5, 0.2, 0.9, 0.03, 0.01, 0.8, 0.5, 3.0, 0.9, 0.02, 0.01,
+                         0.3, -0.2, 7.0] + [1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0, 0.08, 0.01, 0.3] * 2,
+                        device="cuda")
+    out = torch.zeros(96, device="cuda")
+    checked(fn(data.data_ptr(), out.data_ptr(), 16, ctypes.byref(prm),
+               torch.cuda.current_stream().cuda_stream), "cost term probes")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("cost term probes left non-finite values")
+    log(f"[build] SASS instructions per term (term probes): flow {ins['flow']}, prior {ins['prior']}")
+    return ins
+
+
+def parent_cost_times(parent, evaluated):
+    """tools/cost_kernel_ab.py on the checkout `parent` and this one (each
+    one's cost kernel through its own wrappers, CUDA-graph replays, parent,
+    this, this, parent, at every shape of COST_SHAPES), and the parent
+    kernel's issue-rate floor from its own SASS: from its term probes where
+    it has them, else from the slope of the thread-per-pixel kernel's
+    unrolled per-candidate code (KT = 10 against KT = 4, halved: ~one term),
+    else none. Returns the tool's record with the floors."""
+    r = subprocess.run([sys.executable, str(ROOT / "tools" / "cost_kernel_ab.py"), str(parent),
+                        str(ROOT)], capture_output=True, text=True, timeout=900)
+    for ln in r.stdout.splitlines()[:-1]:
+        log(f"[times] cost_kernel_ab {ln}")
+    if r.returncode != 0:
+        raise RuntimeError(f"tools/cost_kernel_ab.py failed:\n{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    ab = json.loads(r.stdout.splitlines()[-1])
+    libs = sorted(Path(parent, "voldor_tpu_torch", "_build").glob("libvoldor_kernels_*.so"),
+                  key=lambda q: q.stat().st_mtime)
+    sass = sass_counts(libs[-1], quiet=True)
+    per_term = None
+    if "cost_term_probe<1,1>" in sass:
+        base = sass["cost_term_probe<1,1>"]
+        per_term = {"flow": sass["cost_term_probe<2,1>"] - base,
+                    "prior": sass["cost_term_probe<1,2>"] - base}
+    elif "cost_kernel<KT=10, accept>" in sass:
+        slope = (sass["cost_kernel<KT=10, accept>"] - sass["cost_kernel<KT=4, accept>"]) / 6
+        per_term = {"flow": slope / 2, "prior": slope / 2}
+    ab["a"]["sass_per_term"] = per_term
+    ab["a"]["issue_floor_us"] = per_term and {
+        k: (n["flow"] * per_term["flow"] + n["prior"] * per_term["prior"]) / FP32_INSTR_PER_S * 1e6
+        for k, n in evaluated.items()}
+    for name in ("a", "b"):
+        log(f"[times] cost kernel of {'the parent' if name == 'a' else 'this tree'} "
+            f"(tools/cost_kernel_ab.py, device-only per launch, CUDA-graph replays): "
+            f"{ab[name]['ms']}")
+    log(f"[times] the parent kernel's issue-rate floor (SASS instructions per term "
+        f"{per_term}): {ab['a']['issue_floor_us']} us")
+    return ab
+
+
 def phase_times(np, torch, bi, sass, parent=None):
     """Device-only times of both kernels, their plain versions' times and
-    their bounds; with parent (a checkout), that checkout's fb_smooth
-    kernel beside this tree's. Returns the kernels' records."""
+    their bounds; with parent (a checkout), that checkout's fb_smooth and
+    cost kernels beside this tree's. Returns the kernels' records."""
     from voldor_tpu_torch.ops import _build
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import fb_smooth as fb
@@ -744,41 +945,68 @@ def phase_times(np, torch, bi, sass, parent=None):
         f"each, timed on one thread); the chunked design's chain floor {chunked_ms * 1e3:.3f} us "
         f"(compositions at {comb_ns:.3f} ns per forward + backward pair)")
 
-    # the cost kernel in accept and score mode
-    slope = (sass["cost_kernel<KT=10, accept>"] - sass["cost_kernel<KT=4, accept>"]) / 6
+    # the cost kernel in accept and score mode at K = 1, 4, 10, 16
+    pow_rec = pow_check(torch)
+    term_ins = term_instructions(torch, sass, p)
+    info_fn = _build.function("cost_kernel_info", [ctypes.c_int, ctypes.POINTER(cost_mod._CostParams),
+                                                   ctypes.POINTER(ctypes.c_int)])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     D = ps[0].shape[0]
-    cost_rec = {}
-    for k in (1, 4, 10):
-        cands = bi["cands_all"][:k].contiguous()
+    cost_rec, ms_by_shape = {}, {}
+    for k in COST_TIMED_K:
+        cands = cost_cands(bi, k)
         depth = bi["d0"].clone()
         cost = cost_mod.cost_map_score(depth[None], *planes, prior_samples=ps)[0].clone()
+        masks = shift_masks(torch, bi["d0"], k)
         out = torch.empty_like(cands)
-        acc_fn, acc_args, _k1 = cost_mod._bind(cost_mod._ACCEPT, cands, *planes, ps,
-                                              depth=depth, cost=cost)
-        sc_fn, sc_args, _k2 = cost_mod._bind(cost_mod._SCORE, cands, *planes, ps, out=out)
-        runs = {"score": [], "accept": []}
-        for order in (("score", "accept"), ("accept", "score")):
-            for name in order:
-                fn, args = (sc_fn, sc_args) if name == "score" else (acc_fn, acc_args)
-                runs[name].append(device_ms(torch, lambda: checked(fn(*args), name)))
+        geom = cost_mod.geometry(k, WINDOW, D, H, W)
+        bound = {("score", False): cost_mod._bind(cost_mod._SCORE, cands, *planes, ps, out=out),
+                 ("accept", False): cost_mod._bind(cost_mod._ACCEPT, cands, *planes, ps,
+                                                   depth=depth, cost=cost),
+                 ("accept", True): cost_mod._bind(cost_mod._ACCEPT, cands, *planes, ps,
+                                                  masks=masks, depth=depth, cost=cost)}
+        runs = {key: [] for key in bound}
+        for order in (list(bound), list(bound)[::-1]):
+            for key in order:
+                fn, args, _poses = bound[key]
+                runs[key].append(device_ms(torch, lambda: checked(fn(*args), shape_name((key[0], k, key[1])))))
+        occ = {}
+        for mode, name in ((cost_mod._SCORE, "score"), (cost_mod._ACCEPT, "accept")):
+            info = (ctypes.c_int * 7)()
+            checked(info_fn(mode, bound[name, False][1][-2], info), "cost_kernel_info")
+            if tuple(info[4:7]) != (geom.threads, geom.smem, geom.grid):
+                raise AssertionError(f"cost kernel K={k}: the entry point launches threads, shared "
+                                     f"bytes, grid {tuple(info[4:7])}, ops/cost.py:geometry says "
+                                     f"{(geom.threads, geom.smem, geom.grid)}")
+            occ[name] = dict(registers=info[0], spill_bytes=info[1], blocks_per_sm=info[2],
+                             warps_per_sm=info[2] * geom.threads // 32,
+                             waves=geom.grid / (info[2] * sms))
         n = count_pieces(torch, cands, tinb, Rs, ts, WINDOW, p, ps)
         fp32_ms, sfu_ms = ops_ms(n, COST_PIECES)
         in_bytes = px * (4 * k + WINDOW * (5 * 4 + 1) + D * 8)
         by_bytes = {"accept": (in_bytes + px * 16) / HBM_BYTES_PER_S * 1e3,
                     "score": (in_bytes + px * 4 * k) / HBM_BYTES_PER_S * 1e3}
         bounds = {m: max(b, fp32_ms, sfu_ms) for m, b in by_bytes.items()}
-        sass_ms = (n["flow"] + n["prior"]) * slope / 2 / FP32_INSTR_PER_S * 1e3
-        cost_rec[k] = {m: min(v) for m, v in runs.items()}
+        floor_ms = (n["flow"] * term_ins["flow"] + n["prior"] * term_ins["prior"]) / FP32_INSTR_PER_S * 1e3
+        cost_rec[k] = {"score": min(runs["score", False]), "accept": min(runs["accept", False]),
+                       "accept_masked": min(runs["accept", True])}
+        for (mode, masked), v in runs.items():
+            ms_by_shape[shape_name((mode, k, masked))] = min(v)
         log(f"[times] cost K={k} N={WINDOW} D={D}: device ms per launch (min of two rounds of "
-            f"{N_LAUNCH}) accept {runs['accept']}, score {runs['score']}; evaluated {n}; least "
-            f"operations FP32 {fp32_ms * 1e3:.2f} us, special-function {sfu_ms * 1e3:.2f} us; "
-            f"bytes accept {by_bytes['accept'] * 1e3:.2f} us, score {by_bytes['score'] * 1e3:.2f} "
-            f"us; bound (largest) accept {bounds['accept'] * 1e3:.2f} us, score "
-            f"{bounds['score'] * 1e3:.2f} us. Static-SASS estimate of this implementation's "
-            f"work (not a bound): ~{slope / 2:.0f} instructions per term, "
-            f"{sass_ms * 1e3:.2f} us at the FP32 issue rate")
-        cost_rec[k]["bound"] = bounds
-        cost_rec[k]["bound_by"] = "operations" if max(fp32_ms, sfu_ms) > by_bytes["accept"] else "bytes"
+            f"{N_LAUNCH}) accept {runs['accept', False]}, accept with masks {runs['accept', True]}, "
+            f"score {runs['score', False]}; geometry {geom._asdict()}; occupancy {occ}; "
+            f"evaluated {n}; least operations FP32 {fp32_ms * 1e3:.2f} us, special-function "
+            f"{sfu_ms * 1e3:.2f} us; bytes accept {by_bytes['accept'] * 1e3:.2f} us, score "
+            f"{by_bytes['score'] * 1e3:.2f} us; bound (largest) accept {bounds['accept'] * 1e3:.2f} "
+            f"us, score {bounds['score'] * 1e3:.2f} us; issue-rate floor (this kernel's SASS per "
+            f"term, {term_ins['flow']} flow / {term_ins['prior']} prior, at the FP32 issue rate; "
+            f"not a bound) {floor_ms * 1e3:.2f} us")
+        cost_rec[k].update(bound=bounds, issue_floor_ms=floor_ms, geometry=geom._asdict(),
+                           occupancy=occ, evaluated=n,
+                           bound_by="operations" if max(fp32_ms, sfu_ms) > by_bytes["accept"] else "bytes")
+    cost_ab = None
+    if parent is not None:
+        cost_ab = parent_cost_times(parent, {k: cost_rec[k]["evaluated"] for k in cost_rec})
 
     # the plain composition the kernel's accept replaces, at K = 10
     cands = bi["cands_all"]
@@ -800,9 +1028,19 @@ def phase_times(np, torch, bi, sass, parent=None):
                      chain_floor_new_ms=chunked_ms, combine_pair_ns=comb_ns,
                      parent_ms=ab and ab["a"]["ms"], parent_ab=ab)
     c10 = cost_rec[10]
-    cost_record = dict(ms=c10["accept"], plain_ms=min(pa1, pa2), bound_ms=c10["bound"]["accept"],
-                       bound_by=c10["bound_by"], score_ms=c10["score"],
-                       ms_by_k={k: {m: r[m] for m in ("accept", "score")} for k, r in cost_rec.items()})
+    cost_record = dict(
+        ms=c10["accept"], plain_ms=min(pa1, pa2), bound_ms=c10["bound"]["accept"],
+        bound_by=c10["bound_by"], score_ms=c10["score"],
+        ms_by_k={k: {m: r[m] for m in ("accept", "accept_masked", "score")} for k, r in cost_rec.items()},
+        ms_by_shape=ms_by_shape,
+        bound_us_by_k={k: {m: r["bound"][m] * 1e3 for m in r["bound"]} for k, r in cost_rec.items()},
+        issue_floor_us={k: r["issue_floor_ms"] * 1e3 for k, r in cost_rec.items()},
+        sass_per_term=term_ins,
+        registers={m: c10["occupancy"][m]["registers"] for m in ("score", "accept")},
+        spill_bytes={m: c10["occupancy"][m]["spill_bytes"] for m in ("score", "accept")},
+        warps_per_sm={k: r["occupancy"]["accept"]["warps_per_sm"] for k, r in cost_rec.items()},
+        waves={k: r["occupancy"]["accept"]["waves"] for k, r in cost_rec.items()},
+        pow_m2=pow_rec, parent=cost_ab)
     return fb_record, cost_record
 
 
@@ -925,20 +1163,23 @@ def reset_counts():
     from voldor_tpu_torch.ops import fb_smooth as fb
 
     cost_mod.cost_kernel_launches = cost_mod.cost_score_launches = 0
+    cost_mod.cost_launch_shapes.clear()
     fb.fb_smooth_kernel_launches = 0
     fk.reset_counts()
 
 
 def read_counts():
-    """Launches since reset_counts: the cost kernel (score mode apart), fb_smooth,
-    and the falign kernels (linearize: the one-shot linearise and scores
-    launches; lm_chunk: the LM chunks)."""
+    """Launches since reset_counts: the cost kernel (score mode apart; shapes:
+    by (mode, K, masked)), fb_smooth, and the falign kernels (linearize:
+    the one-shot linearise and scores launches; lm_chunk: the LM chunks)."""
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import falign_kernels as fk
     from voldor_tpu_torch.ops import fb_smooth as fb
 
     return dict(cost=cost_mod.cost_kernel_launches, score=cost_mod.cost_score_launches,
-                fb=fb.fb_smooth_kernel_launches, **fk.read_counts())
+                shapes={shape_name(k): n for k, n in cost_mod.cost_launch_shapes.items()},
+                fb=fb.fb_smooth_kernel_launches,
+                **fk.read_counts())
 
 
 def check_counts(what, counts, em_iters):
@@ -3107,7 +3348,8 @@ def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
     ap.add_argument("--parent", default=None,
                     help="another checkout (e.g. the parent commit unpacked from git archive): "
-                         "its fb_smooth kernel is timed beside this tree's (tools/fb_smooth_ab.py)")
+                         "its fb_smooth and cost kernels are timed beside this tree's "
+                         "(tools/fb_smooth_ab.py, tools/cost_kernel_ab.py)")
     opt = ap.parse_args()
     t_run = time.perf_counter()
     smi = phase_device(torch)
@@ -3125,18 +3367,52 @@ def main():
     scene = build_scene(np, torch, SLAM_FLOWS)
     bi = bench_inputs(np, torch, scene)
     fb_err, fb_chunk_err = phase_fb(np, torch, bi)
-    score_err = phase_score(np, torch, bi)
-    accept_frac = phase_accept(np, torch, bi)
+    score_err = phase_score(np, torch, bi, scene)
+    accept_frac = phase_accept(np, torch, bi, scene)
     fb_rec, cost_rec = phase_times(np, torch, bi, sass, opt.parent)
     # the full-SLAM scene of the mapping half (phases 12-16); the falign
     # kernels' times at its batches' shapes
     sc = build_slam_scene(np, torch, SLAM_E2E_FLOWS)
     falign_rec = falign_times(np, torch, sc)
 
-    # the slice, counted: every launch from here on is the main path's
+    # the slice, counted: every launch from here on is the main path's;
+    # the cost kernel's launches in each depth round too
+    rounds = []
+    round_core = engine_mod._depth_round_core
+
+    def counted_round(*a, **k):
+        from voldor_tpu_torch.ops import cost as cost_mod
+
+        before = cost_mod.cost_kernel_launches
+        out = round_core(*a, **k)
+        rounds.append(cost_mod.cost_kernel_launches - before)
+        return out
+
     reset_counts()
-    est, walls0, iters, route = run_sequence(np, torch, scene, check=True)
+    engine_mod._depth_round_core = counted_round
+    try:
+        est, walls0, iters, route = run_sequence(np, torch, scene, check=True)
+    finally:
+        engine_mod._depth_round_core = round_core
     win_counts = read_counts()
+    # a depth round's cost launches (over the rounds that launch it: the
+    # flow-fed ones), each shape the main path launched at its phase-6
+    # time (and at each checkout's, with --parent)
+    shapes = win_counts["shapes"]
+    fed = sum(1 for n in rounds if n > 0)
+    round_ms = depth_round_ms(cost_rec["ms_by_shape"], shapes, fed)
+    parent_round = None
+    if cost_rec["parent"] is not None:
+        parent_round = {name: depth_round_ms(cost_rec["parent"][name]["ms"], shapes, fed)
+                        for name in ("a", "b")}
+    round_launches = dict(collections.Counter(rounds))
+    log(f"[slice] cost kernel launches by shape over the windows' {len(rounds)} depth rounds "
+        f"(rounds by their launches: {round_launches}): {shapes}; a flow-fed round's cost launches "
+        f"{round_ms:.5f} ms at phase 6's device times"
+        + ("" if parent_round is None else
+           f"; through each checkout's wrapper (tools/cost_kernel_ab.py) the parent's "
+           f"{parent_round['a']:.5f} ms, this tree's {parent_round['b']:.5f} ms "
+           f"({parent_round['a'] / parent_round['b']:.3f}x)"))
     log(f"[slice] bootstrap route: {route}; EM iterations per window {iters}; "
         f"cost kernel launches {win_counts['cost']} ({win_counts['score']} in score mode), "
         f"fb_smooth kernel launches {win_counts['fb']}; cold wall s {[round(x, 4) for x in walls0]}")
@@ -3267,6 +3543,20 @@ def main():
             "library_ms": None,
             "score_ms": cost_rec["score_ms"],
             "ms_by_k": cost_rec["ms_by_k"],
+            "bound_us_by_k": cost_rec["bound_us_by_k"],
+            "ms_by_shape": cost_rec["ms_by_shape"],
+            "launches_by_shape": shapes,
+            "depth_rounds_by_launches": round_launches,
+            "depth_round_ms": round_ms,
+            "depth_round_ms_ab": parent_round,
+            "issue_floor_us_by_k": cost_rec["issue_floor_us"],
+            "sass_per_term": cost_rec["sass_per_term"],
+            "registers": cost_rec["registers"],
+            "spill_bytes": cost_rec["spill_bytes"],
+            "warps_per_sm_by_k": cost_rec["warps_per_sm"],
+            "waves_by_k": cost_rec["waves"],
+            "pow_m2_bitwise": cost_rec["pow_m2"],
+            "parent_ab": cost_rec["parent"],
         },
         {
             "name": "falign_linearize",

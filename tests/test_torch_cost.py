@@ -10,7 +10,9 @@ Tolerance: elementwise rtol = atol = 1e-5 and an identical +inf pattern.
 The plain accept, ``accept_reference``, is held bitwise to the accept of
 ``em.optimize_depth_batched`` on scripted costs (ties, masks, all-+inf
 pixels, NaNs). The kernel itself runs only on a CUDA device (tests marked
-``gpu``).
+``gpu``: K = 1, 4, 10, 16 at N = 1, 5, 8 and D = 0, 2, 4, windows cut
+short, a row band with y0 > 0 and widths no multiple of the kernel's tile,
+masks none or partial, repeats bitwise equal).
 
 The JAX side runs op by op (``jax.disable_jit``): compiled, XLA on the CPU
 contracts ``a*b + c`` into fused multiply-adds and divides by constants
@@ -268,44 +270,87 @@ def test_accept_reference_semantics():
     assert d[0, 1] == 2.0  # unmasked, the tie 0.1 goes to the lower k
 
 
-def _gpu_planes():
-    c = _case(32, 128, 4)
-    rig, track, tinb, ps = _jax_planes(c, 3, 2)
+def _gpu_case(K, N, active_n, D, h=32, w=128, y0=0):
+    """Planes of an N-frame window with D priors (up to 4: _case's two,
+    the frame-0 depth x 0.97 at the identity pose and the frame-1 depth x
+    1.01 at pose 0) and K candidates, on the card; with y0 > 0 the rows
+    from y0 on, a band whose first image row is y0. Returns (whole-image
+    planes, band planes, band candidates, the band's frame-0 depth), each
+    plane set (track, inb, rig, Rs, ts, active_n, p) and its prior samples."""
+    c = _case(h, w, N)
+    c["priors"] = np.concatenate([c["priors"], c["depth0"][None] * 0.97, c["priors"][1:2] * 1.01])
+    c["dp_Rs"] = np.concatenate([c["dp_Rs"], np.eye(3, dtype=np.float32)[None], c["dp_Rs"][1:2]])
+    c["dp_ts"] = np.concatenate([c["dp_ts"], np.zeros((1, 3), np.float32), c["dp_ts"][1:2]])
+    c["pconfs"] = np.concatenate([c["pconfs"], c["pconfs"]])
+    c["confs"] = np.concatenate([c["confs"], c["confs"][::-1]])
+    rig, track, tinb, ps = _jax_planes(c, active_n, D)
     dev = torch.device("cuda")
     trig, ttrack, ttinb, tRs, tts, tps = (
-        x.to(dev) if isinstance(x, torch.Tensor) else tuple(y.to(dev) for y in x)
+        None if x is None else x.to(dev) if isinstance(x, torch.Tensor) else tuple(y.to(dev) for y in x)
         for x in _to_torch(rig, track, tinb, ps, c)
     )
-    planes = (ttrack, ttinb, trig, tRs, tts, 3, em_params_from_numpy(c["p"]))
-    return c, dev, planes, tps
+    p = em_params_from_numpy(c["p"])
+    scale = 1.0 + 0.04 * (np.arange(K, dtype=np.float32) - K / 2)
+    cands = torch.as_tensor(c["depth0"][None] * scale[:, None, None], device=dev)
+    whole = ((ttrack, ttinb, trig, tRs, tts, active_n, p), tps)
+
+    def rows(x):
+        return x[:, y0:].contiguous()
+
+    band_ps = None if tps is None else (rows(tps[0]), rows(tps[1]), tps[2], tps[3])
+    band = ((tuple(rows(t) for t in ttrack), rows(ttinb), rows(trig), tRs, tts, active_n, p), band_ps)
+    depth0 = torch.as_tensor(c["depth0"][y0:] * 1.3, device=dev).contiguous()
+    return whole, band, cands, rows(cands), depth0
+
+
+# (K, N, active_n, D, h, w, y0): every K at N = 1, 5, 8 and D = 0, 2, 4,
+# windows cut short (active_n < N), a band with y0 > 0, and widths that are
+# no multiple of the tile (h * w of 29 x 37 or 29 x 128)
+GPU_CASES = (
+    [(K, N, N, D, 32, 128, 0) for K in (1, 4, 10, 16) for N in (1, 5, 8) for D in (0, 2, 4)]
+    + [(4, 8, 5, 2, 32, 128, 0), (10, 5, 3, 4, 32, 128, 0), (16, 8, 6, 0, 32, 128, 0)]
+    + [(K, 5, 5, 2, 32, 128, 11) for K in (1, 10, 16)]
+    + [(K, 5, 4, 2, 29, 37, 0) for K in (1, 4, 10, 16)] + [(10, 8, 8, 4, 29, 128, 5)]
+)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the cost kernel has no CPU mode")
 
 
 @pytest.mark.gpu
-def test_cost_kernel_matches_plain_on_gpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the cost kernel has no CPU mode")
-    c, dev, planes, tps = _gpu_planes()
-    cands = torch.as_tensor(c["cands"], device=dev)
+@pytest.mark.parametrize("K,N,active_n,D,h,w,y0", GPU_CASES)
+def test_cost_kernel_matches_plain_on_gpu(K, N, active_n, D, h, w, y0):
+    _needs_card()
+    (planes, ps), (bplanes, bps), cands, bcands, _ = _gpu_case(K, N, active_n, D, h, w, y0)
     before = tcost.cost_kernel_launches
-    got = tcost.cost_map_score(cands, *planes, prior_samples=tps)
-    assert tcost.cost_kernel_launches == before + 1
-    ref = tcost.normalize_cost(*tcost.cost_map_tracked_reference(cands, *planes, prior_samples=tps))
-    _assert_cost_equal(got.cpu(), ref.cpu())
+    got = tcost.cost_map_score(bcands, *bplanes, prior_samples=bps, y0=y0)
+    again = tcost.cost_map_score(bcands, *bplanes, prior_samples=bps, y0=y0)
+    assert tcost.cost_kernel_launches == before + 2
+    assert torch.equal(got, again)  # repeats are bitwise equal
+    # the band's rows of the whole image's plain costs
+    ref = tcost.normalize_cost(*tcost.cost_map_tracked_reference(cands, *planes, prior_samples=ps))
+    _assert_cost_equal(got.cpu(), ref[:, y0:].cpu())
 
 
 @pytest.mark.gpu
-def test_cost_kernel_accept_matches_plain_on_gpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the cost kernel has no CPU mode")
-    c, dev, planes, tps = _gpu_planes()
-    cands = torch.as_tensor(c["cands"], device=dev)
-    masks = torch.ones(cands.shape, dtype=torch.bool, device=dev)
-    masks[0, :, ::3] = False
-    depth = torch.as_tensor(c["depth0"] * 1.3, device=dev)
-    cost = tcost.cost_map_score(depth[None].contiguous(), *planes, prior_samples=tps)[0]
-    costs = tcost.normalize_cost(*tcost.cost_map_tracked_reference(cands, *planes, prior_samples=tps))
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("K,N,active_n,D,h,w,y0", GPU_CASES[::3] + GPU_CASES[-9:])
+def test_cost_kernel_accept_matches_plain_on_gpu(K, N, active_n, D, h, w, y0, masked):
+    _needs_card()
+    _, (planes, ps), _, cands, depth = _gpu_case(K, N, active_n, D, h, w, y0)
+    masks = None
+    if masked:
+        masks = torch.ones(cands.shape, dtype=torch.bool, device=cands.device)
+        masks[0, :, ::3] = False
+        masks[K // 2, ::2] = False
+    cost = tcost.cost_map_score(depth[None].contiguous(), *planes, prior_samples=ps, y0=y0)[0]
+    costs = tcost.normalize_cost(*tcost.cost_map_tracked_reference(
+        cands, *planes, prior_samples=ps, y0=y0))
     d_ref, c_ref = tcost.accept_reference(depth, cost, costs, cands, masks)
-    d, k = tcost.cost_map_accept(depth.clone(), cost.clone(), cands, masks, *planes, prior_samples=tps)
+    d, k = tcost.cost_map_accept(depth.clone(), cost.clone(), cands, masks, *planes,
+                                 prior_samples=ps, y0=y0)
     same = d == d_ref
     assert same.float().mean().item() >= 0.999
     # the written cost: the plain one where the depths agree, and everywhere
@@ -313,10 +358,14 @@ def test_cost_kernel_accept_matches_plain_on_gpu():
     # the pixel), which is a near-tie with the plain pick's
     assert torch.equal(torch.isinf(k[same]), torch.isinf(c_ref[same]))
     assert _close(k[same], c_ref[same]).all()
-    hit = (cands == d[None]) & masks
+    kept = masks if masks is not None else torch.ones_like(cands, dtype=torch.bool)
+    hit = (cands == d[None]) & kept
     took = hit.any(dim=0) & ((d != depth) | (k != cost))
     pick = torch.where(took, torch.gather(costs, 0, torch.argmax(hit.to(torch.uint8), 0)[None])[0], cost)
     assert _close(k, pick).all() and _close(pick, c_ref).all()
+    d2, k2 = tcost.cost_map_accept(depth.clone(), cost.clone(), cands, masks, *planes,
+                                   prior_samples=ps, y0=y0)
+    assert torch.equal(d, d2) and torch.equal(k, k2)
 
 
 def _close(a, b):

@@ -17,7 +17,8 @@ accept of ``voldor_tpu/vo/em.py:optimize_depth_batched`` (:596-610).
 
 For CUDA tensors both launch the kernel (each launch counted in
 ``cost_kernel_launches``, the score-mode ones also in
-``cost_score_launches``); for CPU tensors they compose the plain versions,
+``cost_score_launches``, and by mode, K and masks in
+``cost_launch_shapes``); for CPU tensors they compose the plain versions,
 ``cost_map_tracked_reference`` (a transcription of
 ``em.compute_cost_map_tracked`` (em.py:208-268) and ``em.prior_cost_sums``
 (em.py:271-298), batched over the K candidates, returning raw sums) ->
@@ -25,7 +26,11 @@ For CUDA tensors both launch the kernel (each launch counted in
 to the other. The wrappers make no host-device sync: the pose rows are
 built on the device and the kernel reads them there.
 
-The kernel is built with the package's other kernels by ``ops/_build.py``.
+``geometry`` chooses each launch's tile (a block per ``tile`` consecutive
+pixels and all K candidates) and gives the threads, shared bytes and grid
+that follow from it; the C entry point takes the tile, derives the rest
+the same way and refuses a tile that does not fit. The kernel is built
+with the package's other kernels by ``ops/_build.py``.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ MAX_K = 16  # candidates per launch (COST_MAX_K)
 # smoke test reads them to show the main path went through the kernel).
 cost_kernel_launches = 0  # every launch, score and accept
 cost_score_launches = 0  # the score-mode ones among them
+# every launch by ("score" or "accept", K, masks given)
+cost_launch_shapes: collections.Counter = collections.Counter()
 
 _SCORE, _ACCEPT = 0, 1
 
@@ -60,12 +67,44 @@ class _CostParams(ctypes.Structure):
         ("n_frames", ctypes.c_int), ("active_n", ctypes.c_int),
         ("n_priors", ctypes.c_int), ("k", ctypes.c_int),
         ("h", ctypes.c_int), ("w", ctypes.c_int), ("y0", ctypes.c_int),
+        ("tile", ctypes.c_int),
     ]
 
 
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.POINTER(_CostParams), ctypes.c_void_p]
 )
+
+
+SMEM_LIMIT = 48 * 1024  # dynamic shared bytes a block gets without opting in
+MAX_THREADS = 768  # the kernel's launch bounds (two such blocks an SM: 40 registers)
+
+
+class Geometry(NamedTuple):
+    """One launch: a block takes ``tile`` consecutive pixels of the band and
+    all K candidates (thread k * tile + j: candidate k at pixel j)."""
+
+    tile: int  # pixels a block, a multiple of 32
+    threads: int  # K * tile
+    smem: int  # dynamic shared bytes a block
+    grid: int  # blocks: ceil(h * w / tile)
+
+
+def geometry(K: int, N: int, D: int, h: int, w: int) -> Geometry:
+    """The kernel's launch geometry for K candidates, N window frames and D
+    priors over an h x w band: 128 pixels a block at K = 1, else 32 (a
+    warp a candidate), the fastest of 32-256 on an H100 (PERF.md). Shared
+    memory a block: per pixel and frame the staged planes and the Fisk
+    model (4 float pairs and the in-bounds byte), per pixel and prior 5
+    floats, per pixel and candidate the accept's cost and depth
+    (``cost_smem_bytes`` in csrc/cost_kernel.cu, which derives the same
+    from the tile)."""
+    tile = 128 if K == 1 else 32
+    smem = tile * (33 * N + 20 * D + 8 * K)
+    if K * tile > MAX_THREADS or smem > SMEM_LIMIT:
+        raise ValueError(f"cost kernel: K={K} N={N} D={D} needs {K * tile} threads and {smem} "
+                         f"shared bytes a block (at most {MAX_THREADS} and {SMEM_LIMIT})")
+    return Geometry(tile, K * tile, smem, -(-(h * w) // tile))
 
 
 def normalize_cost(cost_sum, weight_sum):
@@ -220,6 +259,7 @@ def _bind(mode, cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_s
     prm.lam, prm.arf, prm.bf, prm.omega = p.lam, p.abs_resize_factor, p.basefocal, p.omega
     prm.n_frames, prm.active_n, prm.n_priors, prm.k = N, int(active_n), D, K
     prm.h, prm.w, prm.y0 = h, w, int(y0)
+    prm.tile = geometry(K, N, D, h, w).tile
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -243,6 +283,8 @@ def _launch(mode, *operands, **kw):
     cost_kernel_launches += 1
     if mode == _SCORE:
         cost_score_launches += 1
+    cost_launch_shapes["score" if mode == _SCORE else "accept", operands[0].shape[0],
+                       kw.get("masks") is not None] += 1
 
 
 def cost_map_score(cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples=None,
