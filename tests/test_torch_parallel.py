@@ -8,7 +8,8 @@ kernels' plain versions run, band by band. Tolerances are the JAX tests'
 (test_multichip.py:63-68, :121-126); the readings measured here are in the
 docstrings. Banded plain kernels agree with the whole map to an ulp (the
 CPU's vector and scalar math paths fall on different elements of a band);
-the hyp axis adds the partial sums' order of reduction.
+the hyp axis solves slices of the hypotheses and gathers the pool for one
+search, the mesh of one's arithmetic.
 """
 
 import numpy as np
@@ -250,9 +251,8 @@ def test_multichip_em_step_matches_mesh_of_one(mesh):
 def test_multichip_solve_matches_mesh_of_one(mesh):
     """test_multichip.py:71-126: the full solve (2 EM iterations) on the
     consistent window. Limits: max relative error poses6 / covars < 2e-3,
-    depth / rigidness < 0.05. Measured: sp4 equal to the mesh of one;
-    sp4xhyp2 and sp2xhyp2 poses6 3.3e-4, covars 7.4e-7, depth 2.8e-3,
-    rigidness 1.6e-2."""
+    depth / rigidness < 0.05. Measured: all three equal to the mesh of
+    one."""
     n, h, w = 3, 32, 128
     flows, depth0 = _consistent_window(n, h, w)
     cfg = _cfg(h, w, max_iters=2)

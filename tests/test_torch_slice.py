@@ -184,7 +184,9 @@ def test_port_imports_no_jax():
         "voldor_tpu_torch.utils.debug_viz, voldor_tpu_torch.parallel.hints, "
         "voldor_tpu_torch.parallel.mesh, voldor_tpu_torch.native.io, "
         "voldor_tpu_torch.slam.gl_viewer, voldor_tpu_torch.utils.profiling, "
-        "voldor_tpu_torch.utils.artifacts; "
+        "voldor_tpu_torch.utils.artifacts, voldor_tpu_torch.ops.p3p, "
+        "voldor_tpu_torch.ops.meanshift, voldor_tpu_torch.ops.robust_gaussian, "
+        "voldor_tpu_torch.ops.reduce; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'voldor_tpu' or m.startswith('voldor_tpu.')]; "
         "assert not bad, bad; print('clean')"

@@ -7,8 +7,10 @@ Runs the three consecutive 5-flow bench-scene windows of chip_smoke.py
 (0, 1 and 2 depth priors; 613x185) once to warm up, then:
 
 1. layer shares: the same three windows with synchronised host timers
-   around the solve's layers (pose sweep, depth round, and inside the depth
-   round fb_smooth, the cost kernel's wrappers and the rigidness refresh);
+   around the solve's layers (pose sweep, depth round; inside the pose
+   sweeps the P4P -> meanshift -> robust-Gaussian chain, _solve_and_fuse;
+   inside the depth round fb_smooth, the cost kernel's wrappers and the
+   rigidness refresh);
    the rest of the window wall (init, bootstrap, the solve loop's own host
    work, confidence) is reported as "other";
 2. torch.profiler (CPU and CUDA activities) over the three windows: wall,
@@ -40,6 +42,7 @@ def main():
     sys.path.insert(0, str(ROOT / "tests"))
     import chip_smoke as cs
     from voldor_tpu_torch.vo import engine as engine_mod
+    from voldor_tpu_torch.vo import pose_step
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
@@ -74,6 +77,9 @@ def main():
     em_inner = {
         "  rigidness refresh": "update_rigidness_and_tracks",
     }
+    pose_inner = {  # inside both pose sweeps: the P4P -> meanshift -> RG chain
+        "  solve and fuse": "_solve_and_fuse",
+    }
     saved = {}
     for label, name in {**layers, **inner}.items():
         saved[(engine_mod, name)] = getattr(engine_mod, name)
@@ -81,6 +87,9 @@ def main():
     for label, name in em_inner.items():
         saved[(engine_mod.em, name)] = getattr(engine_mod.em, name)
         setattr(engine_mod.em, name, timed(label, getattr(engine_mod.em, name)))
+    for label, name in pose_inner.items():
+        saved[(pose_step, name)] = getattr(pose_step, name)
+        setattr(pose_step, name, timed(label, getattr(pose_step, name)))
     try:
         _, walls, iters, _ = cs.run_sequence(np, torch, scene)
     finally:
@@ -90,7 +99,8 @@ def main():
     top = sum(v for k, v in spent.items() if not k.startswith("  "))
     print(f"[layers] 3 windows, EM iterations {iters}, wall {wall:.4f} s "
           f"(per window {[round(x, 4) for x in walls]}), synchronised timers:", flush=True)
-    for label in list(layers) + list(inner) + list(em_inner):
+    pose, depth = list(layers)[:2], list(layers)[2:]
+    for label in pose + list(pose_inner) + depth + list(inner) + list(em_inner):
         if label in spent:
             print(f"[layers] {label}: {spent[label]:.4f} s ({100 * spent[label] / wall:.1f}%)")
     print(f"[layers] other (init, bootstrap, solve-loop host work, confidence): "
@@ -125,7 +135,7 @@ def main():
             count[e.name] = count.get(e.name, 0) + 1
     print(f"[profile] wall {wall:.4f} s; device busy {busy / 1e6:.4f} s of a "
           f"{span / 1e6:.4f} s device span ({100 * (1 - busy / span):.1f}% idle); "
-          f"device intervals {len(dev)}", flush=True)
+          f"device intervals {len(dev)} ({len(dev) / cs.N_WINDOWS:.0f} a window)", flush=True)
     for name in sorted(count, key=count.get, reverse=True)[:12]:
         print(f"[profile] {name}: {count[name]} calls")
     ka = prof.key_averages()

@@ -214,7 +214,12 @@ const char* vio_name(void* h, int idx) {
 void vio_close(void* h) {
   if (!h) return;
   auto* L = static_cast<Loader*>(h);
-  L->stop.store(true);
+  {
+    // under the mutex: a worker that has just found its wait predicate
+    // false would otherwise miss the notify below and never wake
+    std::lock_guard<std::mutex> lk(L->mu);
+    L->stop.store(true);
+  }
   L->cv_work.notify_all();
   L->cv_ready.notify_all();
   for (auto& t : L->workers) t.join();

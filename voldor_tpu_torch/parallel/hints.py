@@ -6,11 +6,11 @@ it without a cycle.
 The JAX package marks its hot tensors with ``shard_hint`` and lets GSPMD
 partition the jitted solve. Here the partitioning is explicit: the compute
 modules ask for the devices of a mesh axis (``axis_devices``), cut a tensor
-into one slice per device (``split``), and bring the slices or partial sums
-back to the mesh's first device (``gather``, ``sum_partials``). Like
-``shard_hint`` (``hints.py:32-44``), every hook is the identity unless a
-mesh was activated with ``active_mesh(...)`` and that mesh carries the named
-axis with more than one device along it.
+into one slice per device (``split``), and bring the slices back to the
+mesh's first device (``gather``). Like ``shard_hint`` (``hints.py:32-44``),
+every hook is the identity unless a mesh was activated with
+``active_mesh(...)`` and that mesh carries the named axis with more than
+one device along it.
 
 A mesh is any object with ``axis_names`` and ``axis_devices(axis)`` (the
 devices along ``axis``, every other axis at index 0): ``parallel/mesh.py``'s
@@ -87,11 +87,3 @@ def gather(parts, dim: int, out: torch.Tensor | None = None) -> torch.Tensor:
             dst.copy_(part)
     return out
 
-
-def sum_partials(parts, device) -> torch.Tensor:
-    """The sum of the partial results ``parts``, added in order on
-    ``device``."""
-    total = parts[0].to(device)
-    for p in parts[1:]:
-        total = total + p.to(device)
-    return total

@@ -13,9 +13,11 @@ Two axes, as in the JAX package:
   reads other rows) and the bands' results are gathered after every batch.
 * hyp (hypotheses): the P4P pose hypotheses. They are drawn once on the
   first device; each device of the axis solves its slice
-  (``vo/pose_step.py:_solve_and_fuse``) and reduces its slice's meanshift
-  weights, and the partial sums are added on the first device
-  (``ops/meanshift.py``).
+  (``vo/pose_step.py:_solve_and_fuse``, one P4P kernel launch a device on
+  the card), and the pool is gathered on the first device. There the
+  meanshift and robust-Gaussian kernels each run the whole search in one
+  launch, as their plain versions do on CPU tensors: a mesh's pose fusion
+  is a mesh of one's arithmetic.
 
 On a 2-D sp x hyp mesh the sp axis runs over the devices of hyp index 0
 and the hyp axis over those of sp index 0 (``Mesh.axis_devices``).

@@ -270,29 +270,38 @@ def _get_batch_p4p(minimal_solver: str):
     raise ValueError(f"unknown minimal_solver {minimal_solver!r}")
 
 
+def _p4p_pool(minimal_solver: str, p2s, p3s, valid, idx, p: EmParams, rs: float):
+    """The hypotheses ``idx`` as the meanshift pool: (pool (B, n, 6) =
+    [rvec * rs, t], pool_valid (B, n) float32 0 / 1). LambdaTwist's kernel
+    writes the pool directly (``p3p.solve_batch_p4p_pool``)."""
+    if minimal_solver == "lambdatwist":
+        return p3p.solve_batch_p4p_pool(p2s, p3s, valid, idx, p.fx, p.fy, p.cx, p.cy, rs)
+    rvecs, tvecs, ok = _get_batch_p4p(minimal_solver)(p2s, p3s, valid, idx, p.fx, p.fy, p.cx, p.cy)
+    return torch.cat([rvecs * rs, tvecs], dim=-1), ok.to(torch.float32)
+
+
 def _solve_and_fuse(p2s, p3s, valid, ms_init, successive, rg_refine: bool, gen, p: EmParams, hp):
     """P4P pool -> meanshift -> optional robust-Gaussian refit, batched over
     the leading dim B. p2s (B, M, 2), p3s (B, M, 3), valid (B, M), ms_init
-    (B, 6) poses, successive (B,) bool.
+    (B, 6) poses, successive (B,) bool. On the card each of the three is
+    one kernel launch, and nothing here reads the device from the host.
 
     Returns (pose6 (B, 6), covar (B, 6, 6), density (B,), sample_count
     (B,), n_points (B,), success (B,))."""
-    batch_p4p = _get_batch_p4p(hp.get("minimal_solver", "lambdatwist"))
+    solver = hp.get("minimal_solver", "lambdatwist")
     n_points = valid.sum(dim=-1).to(torch.int32)
     idx = draw_p4p_indices(gen, valid, hp["n_poses_to_sample"])
+    rs = hp["meanshift_rvec_scale"]
     # the hypotheses, drawn once above, split over the active mesh's hyp
     # axis (one slice without one): each device solves its slice against
     # the replicated correspondences
     hyp = hints.axis_devices("hyp") or [valid.device]
     parts = [
-        batch_p4p(p2s.to(d), p3s.to(d), valid.to(d), i, p.fx, p.fy, p.cx, p.cy)
+        _p4p_pool(solver, p2s.to(d), p3s.to(d), valid.to(d), i, p, rs)
         for d, i in zip(hyp, hints.split(idx, hyp, 1))
     ]
-    rvecs, tvecs, ok = (hints.gather([part[j] for part in parts], 1) for j in range(3))
-    rs = hp["meanshift_rvec_scale"]
-    pool = torch.cat([rvecs * rs, tvecs], dim=-1)
-    pool_valid = ok.to(torch.float32)
-    sample_count = ok.sum(dim=-1).to(torch.int32)
+    pool, pool_valid = (hints.gather([part[j] for part in parts], 1) for j in range(2))
+    sample_count = pool_valid.sum(dim=-1).to(torch.int32)
 
     init = torch.cat([ms_init[:, :3] * rs, ms_init[:, 3:6]], dim=-1)
     trials = draw_meanshift_trials(gen, pool_valid, hp["meanshift_max_init_trials"])
@@ -305,7 +314,8 @@ def _solve_and_fuse(p2s, p3s, valid, ms_init, successive, rg_refine: bool, gen, 
     B = valid.shape[0]
     eye = torch.eye(6, dtype=torch.float32, device=valid.device)
     covar0 = (eye * (hp["meanshift_kernel_var"] * s * s)).expand(B, 6, 6)
-    unscale = torch.tensor([1.0 / rs] * 3 + [1.0] * 3, device=valid.device)
+    unscale = torch.ones(6, dtype=torch.float32, device=valid.device)
+    unscale[:3] = 1.0 / rs  # a fill on the device: no copy from the host
     if rg_refine:
         rg = fit_robust_gaussian(
             pool * s, pool_valid, ms.mean * s, covar0,
