@@ -1,17 +1,18 @@
 """The port's host utilities against the JAX package's: the KITTI relative
 errors and pose-file reader (voldor_tpu_torch/utils/evaluation.py, within
 1e-12 of voldor_tpu/utils/evaluation.py: both are the same float64 numpy
-arithmetic), the stage timer, the provenance stamp and the GL viewer's
-gate, as tests/test_aux.py and tests/test_evaluation.py hold the JAX
-package's.
+arithmetic), the Chrome-trace exporter with the tracer's ranges, the
+provenance stamp and the GL viewer's gate, as tests/test_aux.py and
+tests/test_evaluation.py hold the JAX package's.
 """
 
 import numpy as np
 import pytest
 
 from voldor_tpu_torch.utils import evaluation as tev
+from voldor_tpu_torch.utils import profiling
 from voldor_tpu_torch.utils.artifacts import git_rev, stamp
-from voldor_tpu_torch.utils.profiling import StageTimer, device_trace, tic, toc
+from voldor_tpu_torch.utils.profiling import device_trace
 
 
 def _trajectory(seed, n=400, step=2.5, noise=0.0):
@@ -59,27 +60,6 @@ def test_load_kitti_poses_matches_jax(tmp_path):
     np.testing.assert_allclose(got, T, rtol=0, atol=1e-12)
 
 
-def test_stage_timer():
-    synced = []
-    t = StageTimer(enabled=True, sync=lambda: synced.append(1))
-    with t.stage("a"):
-        sum(range(1000))
-    with t.stage("a"):
-        pass
-    with t.stage("b"):
-        pass
-    assert t.counts["a"] == 2 and t.counts["b"] == 1 and len(synced) == 3
-    assert t.totals["a"] > 0 and "a" in t.report()
-    t.reset()
-    assert not t.totals and not t.counts
-    t2 = StageTimer(enabled=False)
-    with t2.stage("x"):
-        pass
-    assert not t2.totals
-    tic("x")
-    assert toc("x") >= 0.0
-
-
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     import json
 
@@ -87,8 +67,14 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
 
     with device_trace(str(tmp_path)) as prof:
         torch.ones(8).sum()
+        profiling.open_record("vo.call")
+        with profiling.span("engine.solve"):
+            torch.ones(8).sum()
+        profiling.close_record()
     assert prof.key_averages() is not None
-    assert "traceEvents" in json.loads((tmp_path / "trace.json").read_text())
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"voldor::vo.call", "voldor::engine.solve"} <= names
 
 
 def test_stamp_prepends_provenance():

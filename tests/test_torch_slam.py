@@ -52,6 +52,8 @@ from test_slam import CX, CY, FX, FY, H, PLANES, W, _make_sequence
 from test_torch_lc import one_torch_thread  # noqa: F401 (a fixture)
 
 USER_CONFIG = "--n_poses_to_sample 2048 --depth_rand_samples 6"
+# fields of the port's vo_window events that its tracer writes (utils/profiling.py)
+TRACE_FIELDS = ("spans", "host_reads", "reads_by_site", "read_wait_s", "counts", "dispatched_fid")
 
 
 def _bits(a):
@@ -161,6 +163,8 @@ def _run_scripted(slam, to_dev, metrics_path):
         e = json.loads(line)
         e.pop("t")
         e.pop("window_s", None)
+        for k in TRACE_FIELDS:  # the port's tracer: no JAX counterpart
+            e.pop(k, None)
         events.append(e)
     return dispatched, states, events
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from voldor_tpu_torch.ops import lie
+from voldor_tpu_torch.utils.profiling import device_sync
 
 
 def _chain_T(poses6, n_flows: int):
@@ -56,7 +57,9 @@ def _rays(K, h: int, w: int, stride: int):
     xs = torch.arange(0, w, stride, dtype=torch.float32, device=K.device)
     Y, X = torch.meshgrid(ys, xs, indexing="ij")
     coords = torch.stack([X, Y, torch.ones_like(X)], -1).reshape(-1, 3)
-    return coords @ torch.linalg.inv(K).T
+    with device_sync("covis.inv", K.device):  # its error check reads the card
+        K_inv = torch.linalg.inv(K)
+    return coords @ K_inv.T
 
 
 def _covis_many(pts0, w_mask, R, t, K, h: int, w: int, stride: int):
@@ -117,7 +120,9 @@ def covis_keyframe(depth_kf, conf_kf, scale_kf: float, poses6, n_flows: int, M, 
     still see the current view? M: (4, 4) tensor."""
     if n_cap is not None:
         n_flows = min(n_flows, n_cap)
-    depth_s = depth_kf * torch.tensor(scale_kf, dtype=torch.float32, device=depth_kf.device)
+    with device_sync("covis.upload", depth_kf.device):
+        s = torch.tensor(scale_kf, dtype=torch.float32, device=depth_kf.device)
+    depth_s = depth_kf * s
     pts0, mask, h, w = _grid(depth_s, conf_kf, K, conf_thresh, stride)
     Rc, tc = _chain_T(poses6.double(), n_flows)
     M = M.double()

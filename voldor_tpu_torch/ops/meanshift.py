@@ -35,6 +35,7 @@ import torch
 from voldor_tpu_torch.ops import _build
 from voldor_tpu_torch.ops.fisk import div_scalar
 from voldor_tpu_torch.ops.reduce import THREADS, block_sum
+from voldor_tpu_torch.utils.profiling import host_read
 
 _SYNC_EVERY = 8  # iterations between host checks of "all converged"
 MAX_D = 8  # the kernel's widest pool row
@@ -112,7 +113,8 @@ def meanshift_reference(
     conf = torch.zeros(space.shape[:-2], dtype=space.dtype, device=dev)
     disp = torch.full(space.shape[:-2], torch.inf, dtype=space.dtype, device=dev)
     for step in range(max_iters):
-        if step % _SYNC_EVERY == 0 and not bool(((it < max_iters) & (disp >= epsilon)).any()):
+        if step % _SYNC_EVERY == 0 and not host_read(
+                "meanshift.stop", bool, ((it < max_iters) & (disp >= epsilon)).any()):
             break
         active = (it < max_iters) & (disp >= epsilon)
 

@@ -28,6 +28,7 @@ import torch
 from voldor_tpu_torch.ops import _build
 from voldor_tpu_torch.ops.fisk import div_scalar
 from voldor_tpu_torch.ops.reduce import THREADS, block_sum
+from voldor_tpu_torch.utils.profiling import host_read
 
 _SYNC_EVERY = 8
 
@@ -157,7 +158,7 @@ def fit_robust_gaussian_reference(
     reliable = torch.ones(batch, dtype=torch.bool, device=dev)
 
     for step in range(max_iters):
-        if step % _SYNC_EVERY == 0 and bool(done.all()):
+        if step % _SYNC_EVERY == 0 and host_read("rg.stop", bool, done.all()):
             break
         active = ~done
         if lam > 0:

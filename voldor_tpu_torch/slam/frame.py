@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from voldor_tpu_torch.utils.profiling import host_read
+from voldor_tpu_torch.vo.engine import host_array
+
 
 class Frame:
     """Map vertex. depth/depth_conf may be host numpy maps or LAZY views
@@ -36,7 +39,7 @@ class Frame:
     @property
     def depth(self):
         if self._depth is None and self.depth_dev is not None:
-            self._depth = np.array(self.depth_dev.cpu().numpy(), np.float32)
+            self._depth = host_read("frame.host_map", host_array, self.depth_dev)
         return self._depth
 
     @depth.setter
@@ -46,7 +49,7 @@ class Frame:
     @property
     def depth_conf(self):
         if self._depth_conf is None and self.conf_dev is not None:
-            self._depth_conf = np.array(self.conf_dev.cpu().numpy(), np.float32)
+            self._depth_conf = host_read("frame.host_map", host_array, self.conf_dev)
         return self._depth_conf
 
     @depth_conf.setter

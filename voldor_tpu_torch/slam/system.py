@@ -43,6 +43,7 @@ from voldor_tpu_torch.slam.slam_utils import (
     geometry_check,
     polish_T44,
 )
+from voldor_tpu_torch.utils import profiling
 from voldor_tpu_torch.utils.flow_io import load_flow
 from voldor_tpu_torch.utils.metrics import MetricsLogger
 from voldor_tpu_torch.vo.api import voldor_dispatch
@@ -743,9 +744,23 @@ class VOLDOR_SLAM:
         Window stepping decisions come from the on-device covisibility
         scores read with the poses. A map write-back between calls bumps
         _map_version and invalidates the in-flight window: it is discarded
-        and re-dispatched against the rebased map."""
-        _t0 = time.perf_counter()
+        and re-dispatched against the rebased map.
+
+        While the metrics logger is open, each call is traced
+        (``utils/profiling.py``): its spans, reads of the device and counts
+        join the call's ``vo_window`` event."""
+        t0 = time.perf_counter()
+        if not self.metrics.enabled:
+            return self._process_vo(t0)
+        profiling.open_record("vo.call")
+        try:
+            return self._process_vo(t0)
+        finally:
+            profiling.close_record()  # a call that logged no vo_window
+
+    def _process_vo(self, t0):
         win_log = None
+        dispatched_fid = None
         kf_append = None
         with self._map_lock.r_locked():
             if self.fid_cur >= (self.N_FRAMES - 1):
@@ -766,10 +781,15 @@ class VOLDOR_SLAM:
             else:
                 if pend is not None:
                     self.metrics.log("vo_pipeline_flush", fid=int(self.fid_cur))
-                inputs = self._vo_window_inputs()
-                handle = self._vo_dispatch(inputs)
-                self._flow_upload_ahead()
-            vo_ret = handle.collect()
+                with profiling.span("vo.inputs"):
+                    inputs = self._vo_window_inputs()
+                with profiling.span("vo.dispatch"):
+                    handle = self._vo_dispatch(inputs)
+                dispatched_fid = inputs["fid"]
+                with profiling.span("vo.upload"):
+                    self._flow_upload_ahead()
+            with profiling.span("vo.collect"):
+                vo_ret = handle.collect()
 
             if self.debug_dir:
                 from voldor_tpu_torch.utils.debug_viz import dump_window_debug
@@ -871,14 +891,19 @@ class VOLDOR_SLAM:
             # pending record is validated against fid/map_version at the
             # next call (map write-backs invalidate it).
             if self.vo_pipeline and self.fid_cur < (self.N_FRAMES - 1):
-                nxt = self._vo_window_inputs()
+                with profiling.span("vo.inputs"):
+                    nxt = self._vo_window_inputs()
+                with profiling.span("vo.dispatch"):
+                    nxt_handle = self._vo_dispatch(nxt)
+                dispatched_fid = nxt["fid"]
                 self._vo_pending = dict(
                     fid=int(self.fid_cur),
                     map_version=self._map_version,
-                    handle=self._vo_dispatch(nxt),
+                    handle=nxt_handle,
                     inputs=nxt,
                 )
-                self._flow_upload_ahead()
+                with profiling.span("vo.upload"):
+                    self._flow_upload_ahead()
 
             # frames that stopped being prior keyframes drop their device
             # tensors (keyframes copy their maps to the host first); this
@@ -891,6 +916,10 @@ class VOLDOR_SLAM:
                 self.append_kf(kf_append)
 
             if win_log is not None:
+                # the call's record ends where window_s is read; the
+                # logger's own read of the confidence map comes after it
+                window_s = time.perf_counter() - t0
+                trace = profiling.close_record()
                 f0 = win_log.pop("_frame")
                 # only when host maps exist or were enqueued (keyframe
                 # windows); -1 marks 'not materialized'
@@ -898,11 +927,13 @@ class VOLDOR_SLAM:
                               or (f0.is_keyframe and f0.conf_dev is not None))
                 self.metrics.log(
                     "vo_window",
-                    window_s=round(time.perf_counter() - _t0, 4),
+                    window_s=round(window_s, 4),
                     mean_depth_conf=(
                         float(np.mean(f0.depth_conf)) if conf_avail else -1.0
                     ),
+                    dispatched_fid=dispatched_fid,
                     **win_log,
+                    **(trace or {}),
                 )
         return True
 

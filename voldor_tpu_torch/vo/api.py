@@ -11,7 +11,8 @@ import torch
 
 from voldor_tpu_torch.config import VoldorConfig
 from voldor_tpu_torch.ops.covis import covis_keyframe, covis_window
-from voldor_tpu_torch.vo.engine import VoldorEngine, _depth_confidence, _to_tensor
+from voldor_tpu_torch.utils.profiling import device_sync, host_read, span
+from voldor_tpu_torch.vo.engine import VoldorEngine, _depth_confidence, _to_tensor, host_array
 
 
 class VoWindow:
@@ -54,9 +55,9 @@ class VoWindow:
 
     def _host_map(self, i: int, dev: torch.Tensor) -> np.ndarray:
         if self._host is not None:
-            self._copied.synchronize()
+            host_read("api.copy_wait", torch.cuda.Event.synchronize, self._copied)
             return np.array(self._host[i].numpy(), np.float32)
-        return np.array(dev.cpu().numpy(), np.float32)
+        return host_read("api.host_map", host_array, dev)
 
     def collect(self) -> dict:
         """The solve's scalars in one read: the legacy voldor() dict minus
@@ -128,34 +129,37 @@ def voldor_dispatch(
                        basefocal=float(basefocal))
     cfg.read_config(config)
     flows, n_true = _pad_flows(flows, pad_window_to)
-    engine = VoldorEngine(cfg, device=device)
-    engine.init(
-        flows, disparity=disparity, disparity_pconf=disparity_pconf,
-        depth_priors=depth_priors, depth_prior_poses=depth_prior_poses,
-        depth_prior_pconfs=depth_prior_pconfs, poses_init=poses_init,
-    )
+    with span("engine.init"):
+        engine = VoldorEngine(cfg, device=device)
+        engine.init(
+            flows, disparity=disparity, disparity_pconf=disparity_pconf,
+            depth_priors=depth_priors, depth_prior_poses=depth_prior_poses,
+            depth_prior_pconfs=depth_prior_pconfs, poses_init=poses_init,
+        )
     if pad_window_to is not None:
         engine.n_flows = min(engine.n_flows, n_true)
         engine.n_flows_init = n_true
-    engine.solve(defer_host=True)
-    n_flows = engine._st_scalars[0]
-    conf_dev = _depth_confidence(engine.rigidness, engine.dp_confs, n_flows)
-
-    covis_dev = spakf_covis_dev = None
-    if covis_spec is not None:
-        dev = engine.device
-        K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1]],
-                         dtype=torch.float32, device=dev)
-        thresh = float(np.float32(covis_spec["conf_thresh"]))
-        covis_dev = covis_window(engine.depth, conf_dev, engine.poses6, n_flows, K, thresh,
-                                 n_cap=n_true)
-        spa = covis_spec.get("spakf")
-        if spa is not None:
-            sdep, sconf, sscale, M = spa
-            spakf_covis_dev = covis_keyframe(
-                _to_tensor(sdep, dev), _to_tensor(sconf, dev), float(np.float32(sscale)),
-                engine.poses6, n_flows, _to_tensor(M, dev), K, thresh, n_cap=n_true,
-            )
+    with span("engine.solve"):
+        engine.solve(defer_host=True)
+    with span("engine.covis"):
+        n_flows = engine._st_scalars[0]
+        conf_dev = _depth_confidence(engine.rigidness, engine.dp_confs, n_flows)
+        covis_dev = spakf_covis_dev = None
+        if covis_spec is not None:
+            dev = engine.device
+            with device_sync("api.upload", dev):
+                K = torch.tensor([[cfg.fx, 0, cfg.cx], [0, cfg.fy, cfg.cy], [0, 0, 1]],
+                                 dtype=torch.float32, device=dev)
+            thresh = float(np.float32(covis_spec["conf_thresh"]))
+            covis_dev = covis_window(engine.depth, conf_dev, engine.poses6, n_flows, K, thresh,
+                                     n_cap=n_true)
+            spa = covis_spec.get("spakf")
+            if spa is not None:
+                sdep, sconf, sscale, M = spa
+                spakf_covis_dev = covis_keyframe(
+                    _to_tensor(sdep, dev), _to_tensor(sconf, dev), float(np.float32(sscale)),
+                    engine.poses6, n_flows, _to_tensor(M, dev), K, thresh, n_cap=n_true,
+                )
     return VoWindow(engine, cfg, n_true, conf_dev, covis_dev, spakf_covis_dev,
                     host_copies=host_copies)
 

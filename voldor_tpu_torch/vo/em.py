@@ -23,6 +23,7 @@ import torch
 from voldor_tpu_torch.ops import fisk
 from voldor_tpu_torch.ops.cost import cost_map_tracked_reference, normalize_cost
 from voldor_tpu_torch.ops.image import bilinear_sample
+from voldor_tpu_torch.utils.profiling import device_sync
 
 MAXIMUM_DEPTH = 1e5
 
@@ -203,10 +204,12 @@ def _slot_weights(D: int, p: EmParams, device):
     """(D, 1, 1) per-prior weights: disp_delta for the disparity prior in
     slot 0 (when disp_delta > 0), delta for the others."""
     slot0 = p.disp_delta > 0
-    return torch.tensor(
-        [p.disp_delta if (slot0 and d == 0) else p.delta for d in range(D)],
-        dtype=torch.float32, device=device,
-    )[:, None, None]
+    with device_sync("em.upload", device):
+        w = torch.tensor(
+            [p.disp_delta if (slot0 and d == 0) else p.delta for d in range(D)],
+            dtype=torch.float32, device=device,
+        )
+    return w[:, None, None]
 
 
 def update_rigidness(depth, flows, Rs, ts, active_n: int, p: EmParams):

@@ -42,6 +42,7 @@ from voldor_tpu_torch.ops.cost import (
 )
 from voldor_tpu_torch.ops.fb_smooth import fb_smooth, fb_smooth_bands
 from voldor_tpu_torch.parallel import hints
+from voldor_tpu_torch.utils.profiling import count, device_sync, host_read, span
 from voldor_tpu_torch.vo import em
 from voldor_tpu_torch.vo.pose_step import _cameras_window_core, _cameras_window_jacobi_core
 
@@ -226,10 +227,16 @@ def _round_through(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype).to(torch.float32)
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A float32 numpy copy of ``t`` on the host."""
+    return np.array(t.cpu().numpy(), np.float32)
+
+
 def _to_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    with device_sync("engine.upload", device):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -275,7 +282,9 @@ def _stack_maps(lst, compress: str | None, device) -> torch.Tensor:
             x, scale = x.arr, x.scale
         x = _to_tensor(x, device)
         if scale != 1.0:
-            x = x * torch.tensor(scale, dtype=torch.float32, device=device)
+            with device_sync("engine.upload", device):
+                s = torch.tensor(scale, dtype=torch.float32, device=device)
+            x = x * s
         outs.append(_round_through(x, dt) if dt is not None else x)
     return torch.stack(outs)
 
@@ -288,9 +297,7 @@ def _stack_flows(lst, compress: bool, device) -> torch.Tensor:
     float16."""
     outs = []
     for x in lst:
-        if not isinstance(x, torch.Tensor):
-            x = torch.as_tensor(np.asarray(x, np.float32))
-        x = x.to(device)
+        x = x.to(device) if isinstance(x, torch.Tensor) else _to_tensor(x, device)
         if compress:
             x = x.to(torch.float16)
         outs.append(x.to(torch.float32))
@@ -396,22 +403,27 @@ def _solve_loop(
         )
         jac_kw = dict(collect_mode=cfg.pose_collect_mode, obs_track=cur_track, obs_tinb=cur_tinb, **sweep_kw)
         if cfg.pose_window_sweep == "seq" or (cfg.pose_window_sweep == "hybrid" and iters_cur == 1):
-            cam = _cameras_window_core(*sweep_args, **sweep_kw)
+            count("pose.sweep.seq")
+            with span("pose.sweep"):
+                cam = _cameras_window_core(*sweep_args, **sweep_kw)
         elif cfg.pose_window_sweep in ("jacobi", "hybrid"):
-            cam = _cameras_window_jacobi_core(*sweep_args, **jac_kw)
+            count("pose.sweep.jacobi")
+            with span("pose.sweep"):
+                cam = _cameras_window_jacobi_core(*sweep_args, **jac_kw)
         else:
             raise ValueError(f"unknown pose_window_sweep {cfg.pose_window_sweep!r}")
         n_flows = cam.n_flows_new
         if cam.truncated:
             iters_remain = max(iters_remain, cfg.min_iters_after_trunc)
         u = em.draw_depth_uniforms(gen, cfg.depth_rand_samples, h, w, depth.device)
-        dr = _depth_round_core(
-            depth, flows, rigidness, cam.poses6, priors, dp_pconfs, dp_confs,
-            dp_poses6, n_flows, params, u, cfg.fb_emm,
-            cfg.fb_no_change_prob, cfg.depth_range_factor,
-            use_flows=True, use_priors=use_priors, obs_track=cur_track,
-            obs_tinb=cur_tinb, prior_samples=pr_hoisted, freeze_prior_confs=freeze, **dkw,
-        )
+        with span("depth.round"):
+            dr = _depth_round_core(
+                depth, flows, rigidness, cam.poses6, priors, dp_pconfs, dp_confs,
+                dp_poses6, n_flows, params, u, cfg.fb_emm,
+                cfg.fb_no_change_prob, cfg.depth_range_factor,
+                use_flows=True, use_priors=use_priors, obs_track=cur_track,
+                obs_tinb=cur_tinb, prior_samples=pr_hoisted, freeze_prior_confs=freeze, **dkw,
+            )
         if anchored:
             depth_, rigidness, dp_confs, track, tinb = dr
         else:
@@ -424,7 +436,9 @@ def _solve_loop(
             rot_d = torch.linalg.norm(poses6_[:a, :3] - poses6[:a, :3], dim=1)
             t_mag = torch.clamp_min(torch.linalg.norm(poses6_[:a, 3:6], dim=1), 1e-6)
             tr_d = torch.linalg.norm(poses6_[:a, 3:6] - poses6[:a, 3:6], dim=1) / t_mag
-            pose_delta = float((rot_d + tr_d).max()) if a > 0 else 0.0
+            pose_delta = (
+                host_read("engine.pose_delta", float, (rot_d + tr_d).max()) if a > 0 else 0.0
+            )
             iters_remain = max(iters_remain, 0)
         if early_stop:
             if pose_delta <= cfg.pose_converge_eps and iters_cur + 1 >= cfg.early_stop_min_iters:
@@ -565,7 +579,8 @@ class VoldorEngine:
             self.priors = _stack_maps(prior_list, "bf16" if compress else None, dev)
             self.dp_pconfs = _stack_maps(pconf_list, "f16" if compress else None, dev)
             self.dp_confs = torch.ones((D, h, w), dtype=torch.float32, device=dev)
-            self.dp_poses6 = torch.as_tensor(np.stack(pose_list), device=dev)
+            with device_sync("engine.upload", dev):
+                self.dp_poses6 = torch.as_tensor(np.stack(pose_list), device=dev)
             self.depth = self.priors[0].clone()
             if not self.has_disparity:
                 self._run_depth_round(prior_only=True)  # fuse priors into the initial depth
@@ -620,7 +635,7 @@ class VoldorEngine:
             cv2 = None
         if cv2 is not None:
             cv2.setRNGSeed(int(cfg.seed))
-            flow0 = self.flows[0].cpu().numpy()
+            flow0 = host_read("engine.bootstrap", host_array, self.flows[0])
             h, w = flow0.shape[:2]
             step = max(1, round((h * w / 3000.0) ** 0.5))
             ys, xs = np.mgrid[0:h:step, 0:w:step]
@@ -671,7 +686,8 @@ class VoldorEngine:
         self.n_flows = int(n_flows)
         self.iters_cur = int(iters_cur)
         self.iters_remain = 0
-        self.pose_rigidness_densities[: rig_dens.shape[0]] = rig_dens.cpu().numpy()
+        self.pose_rigidness_densities[: rig_dens.shape[0]] = host_read(
+            "engine.finalize", host_array, rig_dens)
         if cfg.kitti_estimate_ground:
             # legacy capability (voldor.cpp:146-147, 320-331)
             from voldor_tpu_torch.vo.kitti_ground import estimate_kitti_ground
@@ -682,7 +698,7 @@ class VoldorEngine:
                 holo_width=cfg.kitti_ground_holo_width,
                 ms_kernel_var=cfg.kitti_ground_meanshift_kernel_var,
             )
-        return [x.cpu().numpy() for x in extra_fetch]
+        return [host_read("engine.finalize", host_array, x) for x in extra_fetch]
 
     def solve_stepwise(self) -> int:
         """The reference-structured host loop (``engine.py:981``): one call

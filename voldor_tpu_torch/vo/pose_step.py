@@ -29,6 +29,7 @@ from voldor_tpu_torch.ops.meanshift import draw_meanshift_trials, meanshift
 from voldor_tpu_torch.ops.p3p import draw_p4p_indices
 from voldor_tpu_torch.ops.robust_gaussian import fit_robust_gaussian
 from voldor_tpu_torch.parallel import hints
+from voldor_tpu_torch.utils.profiling import device_sync, host_read
 from voldor_tpu_torch.vo.em import EmParams, _backproject, _pixel_grid, _transform
 
 
@@ -394,7 +395,7 @@ def _cameras_window_core(
     (``pose_step.py:639``, voldor.cpp:164-201)."""
     N = flows.shape[0]
     rig_dens = rigidness.reshape(N, -1).mean(dim=1)
-    rig_dens_host = rig_dens.tolist()
+    rig_dens_host = host_read("pose.rig_dens", torch.Tensor.tolist, rig_dens)
     densities = pose_densities.clone()
     counts = pose_sample_counts.clone()
     n_flows_cur, truncated = int(n_flows), False
@@ -410,11 +411,14 @@ def _cameras_window_core(
                 obs_tinb=obs_tinb, **hp,
             )
             poses6, pose_covars = res.poses6, res.pose_covars
-            success = bool(res.success)
+            success = host_read("pose.success", bool, res.success)
             if success:
                 densities[i] = res.pose_density
                 counts[i] = res.pose_sample_count
-        trunc_now = (not success) or (allow_trunc and float(densities[i]) < trunc_sample_density)
+        trunc_now = (not success) or (
+            allow_trunc
+            and host_read("pose.trunc_density", float, densities[i]) < trunc_sample_density
+        )
         if trunc_now:
             n_flows_cur, truncated = i, True
     return CameraWindowResult(
@@ -450,11 +454,13 @@ def _cameras_window_jacobi_core(
     )
     idx = torch.arange(N, device=depth.device)
     in_win = idx < n_flows
-    attempt = in_win & (torch.tensor(not allow_trunc, device=depth.device) | (rig_dens > trunc_rigidness_density))
+    with device_sync("pose.upload", depth.device):
+        no_trunc = torch.tensor(not allow_trunc, device=depth.device)
+    attempt = in_win & (no_trunc | (rig_dens > trunc_rigidness_density))
     dens_new = torch.where(success & attempt, density, pose_densities)
     passes = attempt & success & ~(allow_trunc & (dens_new < trunc_sample_density))
     fail = in_win & ~passes
-    first_fail = int(torch.where(fail, idx, N).min())
+    first_fail = host_read("pose.first_fail", int, torch.where(fail, idx, N).min())
     n_flows_new = min(int(n_flows), first_fail)
     apply = in_win & (idx <= first_fail) & attempt & success
     return CameraWindowResult(
