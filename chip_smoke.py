@@ -59,6 +59,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    vo/pose_step.py) from the same seeds, their pose differences, walls and
    Sim3 ATEs under the gate, and the kernel launches and syncs of one
    fuse call each way (torch.profiler);
+5c. the chain trace kernel vs plain: the kernel of ops/chain_trace.py, with
+   and without the track planes, against its plain version on the card
+   (chain_trace_reference) at the bench window (185x613, N = 5) on
+   CHAIN_CASES (its frame-0 depth, jittered, cut short at 3 frames, points
+   behind the camera, tracks that leave at every edge, depths of 1e38 that
+   give NaN positions, +inf and NaN depths): track planes and in-bounds bitwise equal, rigidness NaN where
+   NaN and within CHAIN_RIG_ATOL (its bitwise share printed), the
+   rigidness-only launch and a repeat bitwise equal;
 6. device-only times (CUDA events around 100 back-to-back launches of the
    bound C call, no wrapper in between) of the fb_smooth kernel and the
    cost kernel in score mode and in accept mode with and without masks
@@ -94,18 +102,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    iteration times the iterations run) and, for meanshift and the robust
    Gaussian, their chain floors (one block sum per step, timed on one block
    by pose_reduce_probe_kernel, times the steps of the longest search);
+   and the chain trace kernel at N = 5 with and without the track planes
+   at 128 and 256 threads a block, beside its bound (bytes; CT_PIECES) and
+   its registers, and update_rigidness_and_tracks through the wrapper
+   beside the plain composition it replaced (host ms a call, dispatched
+   without synchronising, and event ms a call);
 7. the VO windows: three consecutive 5-flow mono VO windows of the bench
    scene (613x185, seed 7) through voldor_tpu_torch's VO entry point on the
    card, with 0, 1 and 2 depth priors and the SLAM layer's constant-velocity
    warm start; each window must register 5 transitions, every engine
    tensor must lie on the card, the cost kernel must have been launched at
-   least 8 times per flow-fed EM iteration and the fb_smooth kernel at
-   least once, and the 16-frame trajectory must pass the bench's gate,
-   Sim3 ATE < 0.02 * scene extent; the cost kernel's launches by shape
+   least 8 times per flow-fed EM iteration, the chain trace kernel at least
+   once per EM iteration and the fb_smooth kernel at least once, and the
+   16-frame trajectory must pass the bench's gate, Sim3 ATE < 0.02 * scene
+   extent; the cost kernel's launches by shape
    (mode, K, masks) and by depth round weight phase 6's times into a
    flow-fed round's cost time (and, with --parent, each checkout's);
 8. no host sync: the same three windows with every call of the kernel
-   wrappers (fb_smooth, cost score, cost accept) and of the pose sweep's
+   wrappers (fb_smooth, cost score, cost accept, the chain trace through
+   em.update_rigidness_and_tracks) and of the pose sweep's
    _solve_and_fuse (its three kernels and the draws between them) run
    under torch.cuda.set_sync_debug_mode("error");
 9. times: the median warm wall time of each window, fb_smooth's share of a
@@ -390,6 +405,9 @@ def short_name(mangled):
     m = re.search(r"cost_term_probe_kernelILi(\d)ELi(\d)E", mangled)
     if m:
         return f"cost_term_probe<{m.group(1)},{m.group(2)}>"
+    m = re.search(r"chain_trace_kernelILb([01])E", mangled)
+    if m:
+        return f"chain_trace_kernel<{'tracks' if m.group(1) == '1' else 'rigidness'}>"
     m = re.search(r"falign_linearize_kernelILb([01])E", mangled)
     if m:
         return f"falign_linearize_kernel<{'scores' if m.group(1) == '1' else 'grads'}>"
@@ -692,6 +710,185 @@ def phase_accept(np, torch, bi, scene):
         if not inf_same or cost_same or cost_pick:
             raise AssertionError(f"accept mode writes a cost that disagrees with the plain one ({name})")
     return worst
+
+
+# --------------------------------------------------------------------------
+# the chain trace: a depth round's rigidness refresh and anchored tracks
+# --------------------------------------------------------------------------
+
+CHAIN_RIG_ATOL = 2e-6  # the kernel's rigidness against the plain version
+CHAIN_CASES = ("bench", "jitter", "short", "behind", "edges", "nan")
+
+
+def chain_case(torch, bi, name):
+    """(depth, flows, Rs, ts, active_n) of one case at the bench window's
+    size: its frame-0 depth, the depth jittered by +-15% (rigidness well
+    below 1), the window cut short at 3 frames, points behind the camera
+    and on its plane, a pose towards the scene (tracks leave at every
+    edge), depths of 1e38 (NaN positions from frame 1 on), +inf and NaN."""
+    depth, ts, active_n = bi["d0"].clone(), bi["ts"].clone(), WINDOW
+    if name == "jitter":
+        depth = bi["cands_all"][1].clone()
+    elif name == "short":
+        active_n = 3
+    elif name == "behind":
+        depth[20:60, 100:300] *= -1.0
+        depth[90:94, :] = 0.0
+    elif name == "edges":
+        ts[:, 2] = -3.0
+    elif name == "nan":
+        depth[10:20, 50:400] = 1e38  # the projection overflows: NaN positions
+        depth[30:40, 50:400] = torch.inf
+        depth[150, 20:90] = torch.nan
+    return depth.contiguous(), bi["fl"].contiguous(), bi["Rs"], ts, active_n
+
+
+def same_bits(torch, a, b):
+    """Bitwise equal as floats, NaN where NaN."""
+    return bool(torch.equal(a.isnan(), b.isnan())
+                and torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0)))
+
+
+def phase_chain_trace(np, torch, bi):
+    """The chain trace kernel against its plain version on the card, with
+    and without the track planes, on CHAIN_CASES: tracks and in-bounds
+    bitwise equal, rigidness NaN where NaN and within CHAIN_RIG_ATOL, the
+    rigidness-only launch bitwise equal to the full one, two launches
+    bitwise equal. Returns (worst rigidness difference, share of rigidness
+    entries bitwise equal)."""
+    from voldor_tpu_torch.ops import chain_trace as ct
+
+    worst, same, total = 0.0, 0, 0
+    for name in CHAIN_CASES:
+        depth, fl, Rs, ts, active_n = chain_case(torch, bi, name)
+        p = bi["p"]
+        rig, inb, track = ct.chain_trace(depth, fl, Rs, ts, active_n, p)
+        rig2, inb2, none = ct.chain_trace(depth, fl, Rs, ts, active_n, p, tracks=False)
+        again = ct.chain_trace(depth, fl, Rs, ts, active_n, p)
+        prig, pinb, ptrack = ct.chain_trace_reference(depth, fl, Rs, ts, active_n, p)
+        tracks_same = [same_bits(torch, a, b) for a, b in zip(track, ptrack)]
+        nan_same = bool(torch.equal(rig.isnan(), prig.isnan()))
+        d = (torch.nan_to_num(rig, nan=0.0) - torch.nan_to_num(prig, nan=0.0)).abs()
+        err = float(d.max())
+        n_same = int(((rig == prig) | (rig.isnan() & prig.isnan())).sum())
+        worst, same, total = max(worst, err), same + n_same, total + rig.numel()
+        repeat = (same_bits(torch, rig2, rig) and torch.equal(inb2, inb) and none is None
+                  and same_bits(torch, again[0], rig)
+                  and all(same_bits(torch, a, b) for a, b in zip(again[2], track)))
+        log(f"[chain] {name} (active_n {active_n}): in-bounds equal {torch.equal(inb, pinb)} "
+            f"({int(pinb.sum())} of {pinb.numel()}); tracks px, py, obx, oby bitwise {tracks_same}; "
+            f"rigidness max abs diff {err:.3e}, bitwise on {n_same} of {rig.numel()}, NaN pattern "
+            f"equal {nan_same} ({int(prig.isnan().sum())} NaN); without tracks and repeated bitwise "
+            f"{repeat}")
+        if not (torch.equal(inb, pinb) and all(tracks_same) and nan_same and repeat
+                and err <= CHAIN_RIG_ATOL):
+            raise AssertionError(f"chain trace kernel disagrees with the plain version ({name})")
+    log(f"[chain] rigidness bitwise equal on {same} of {total} entries ({100.0 * same / total:.4f}%), "
+        f"worst {worst:.3e} (limit {CHAIN_RIG_ATOL:g})")
+    return worst, same / total
+
+
+# The chain trace's pieces (ops/chain_trace.py's plain version), counted
+# from the formula in its operation order:
+CT_PIECES = {
+    # per pixel: the back-projection (2 sub, 2 div, 2 mul)
+    "px": least_ops(4, div=2),
+    # per pixel and traced frame: the point moved on (9 mul, 9 add), safe nz
+    # (2), projection (6, 2 div), the in-bounds tests (9), the bilinear
+    # sample (clamps 6, floors 2, fractions 2, NaN indices 2, tap indices 6,
+    # weights 2, lerps 18), the carry (2)
+    "frame": least_ops(67, div=2),
+    # per in-bounds term: rigid flow (2), |observed flow| (3, sqrt, div),
+    # residual (2), its norm (3, sqrt, div), clamp (3), shape (2), scale (2,
+    # exp), lam (1), two Fisk densities (9, 4 div, pow each), ratio (1, div)
+    "rig": least_ops(37, div=11, sqrt=2, exp=1, pow=2),
+}
+CHAIN_THREADS = (128, 256)
+
+
+def chain_trace_times(np, torch, bi):
+    """The chain trace kernel device-only at the bench window (N = 5, all
+    frames traced), with and without the track planes, at 128 and 256
+    threads a block (bound C calls, CUDA events over N_LAUNCH launches, two
+    rounds in opposite orders), beside its bound (bytes over 3.35 TB/s;
+    the least operations of CT_PIECES on this run's data over the peak
+    rates), its registers and occupancy, and update_rigidness_and_tracks
+    through the wrapper beside the plain composition it replaced: host
+    milliseconds a call (N_LAUNCH calls dispatched, no synchronisation)
+    and event milliseconds a call."""
+    from voldor_tpu_torch.ops import _build
+    from voldor_tpu_torch.ops import chain_trace as ct
+    from voldor_tpu_torch.vo import em
+
+    depth, fl, Rs, ts, active_n = chain_case(torch, bi, "bench")
+    p = bi["p"]
+    px = H * W
+    info_fn = _build.function("chain_trace_info", [ctypes.c_int, ctypes.c_int,
+                                                   ctypes.POINTER(ctypes.c_int)])
+    bound = {tr: ct._bind(depth, fl, Rs, ts, active_n, p, tr) for tr in (True, False)}
+    runs = {(tr, n): [] for tr in (True, False) for n in CHAIN_THREADS}
+    for order in (list(runs), list(runs)[::-1]):
+        for tr, n in order:
+            fn, args, _out, _poses = bound[tr]
+            args = args[:-2] + (n, args[-1])
+            runs[tr, n].append(device_ms(torch, lambda: checked(fn(*args), "chain trace")))
+    occ = {}
+    for tr in (True, False):
+        for n in CHAIN_THREADS:
+            info = (ctypes.c_int * 3)()
+            checked(info_fn(int(tr), n, info), "chain_trace_info")
+            occ[f"{'tracks' if tr else 'rigidness'}_{n}"] = dict(
+                registers=info[0], spill_bytes=info[1], warps_per_sm=info[2] * n // 32)
+    rig, inb, _ = ct.chain_trace(depth, fl, Rs, ts, active_n, p)
+    counts = dict(px=px, frame=active_n * px, rig=int(inb.sum()))
+    fp32_ms, sfu_ms = ops_ms(counts, CT_PIECES)
+    by_bytes = {tr: px * (4 + 8 * active_n + WINDOW * (5 + 16 * tr)) / HBM_BYTES_PER_S * 1e3
+                for tr in (True, False)}
+    bounds = {tr: max(by_bytes[tr], fp32_ms, sfu_ms) for tr in (True, False)}
+    ms = {tr: min(min(runs[tr, n]) for n in CHAIN_THREADS) for tr in (True, False)}
+    best_threads = min(CHAIN_THREADS, key=lambda n: min(runs[True, n]))
+
+    def plain():
+        return ct.chain_trace_reference(depth, fl, Rs, ts, active_n, p)
+
+    def wrapper():
+        return em.update_rigidness_and_tracks(depth, fl, Rs, ts, active_n, p)
+
+    def host_ms(fn, n=N_LAUNCH):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        return dt
+
+    calls = {}
+    for name, fn in (("plain", plain), ("wrapper", wrapper), ("wrapper", wrapper), ("plain", plain)):
+        calls.setdefault(name, []).append((host_ms(fn), event_ms(torch, fn, 20)))
+    rec = dict(ms=ms[True], ms_rigidness_only=ms[False],
+               ms_by_threads={f"{'tracks' if tr else 'rigidness'}_{n}": min(v)
+                              for (tr, n), v in runs.items()},
+               threads=ct.THREADS, fastest_threads=best_threads,
+               bound_ms=bounds[True], bound_ms_rigidness_only=bounds[False],
+               bound_by="bytes" if by_bytes[True] >= max(fp32_ms, sfu_ms) else "operations",
+               bytes_us=by_bytes[True] * 1e3, fp32_us=fp32_ms * 1e3, sfu_us=sfu_ms * 1e3,
+               evaluated=counts, occupancy=occ,
+               plain_ms=min(e for _, e in calls["plain"]),
+               host_ms_per_call={k: [h for h, _ in v] for k, v in calls.items()},
+               event_ms_per_call={k: [e for _, e in v] for k, v in calls.items()})
+    log(f"[times] chain trace N={WINDOW} {H}x{W}: device ms per launch (min of two rounds of "
+        f"{N_LAUNCH}) {json.dumps(rec['ms_by_threads'])} (the wrapper launches {ct.THREADS} "
+        f"threads a block; fastest with tracks: {best_threads}); occupancy {json.dumps(occ)}; "
+        f"evaluated {counts}; least operations FP32 {fp32_ms * 1e3:.2f} us, special-function "
+        f"{sfu_ms * 1e3:.2f} us; bytes {by_bytes[True] * 1e3:.2f} us with tracks, "
+        f"{by_bytes[False] * 1e3:.2f} us without; bound {bounds[True] * 1e3:.2f} / "
+        f"{bounds[False] * 1e3:.2f} us")
+    log(f"[times] update_rigidness_and_tracks a call, order plain, wrapper, wrapper, plain: host ms "
+        f"(dispatch of {N_LAUNCH} calls, no sync) {json.dumps(rec['host_ms_per_call'])}; event ms "
+        f"(median of 20) {json.dumps(rec['event_ms_per_call'])}")
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -1595,6 +1792,7 @@ POSE_KERNELS = ("p4p", "meanshift", "rg")
 
 
 def reset_counts():
+    from voldor_tpu_torch.ops import chain_trace as ct
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import falign_kernels as fk
     from voldor_tpu_torch.ops import fb_smooth as fb
@@ -1605,15 +1803,18 @@ def reset_counts():
     cost_mod.cost_kernel_launches = cost_mod.cost_score_launches = 0
     cost_mod.cost_launch_shapes.clear()
     fb.fb_smooth_kernel_launches = 0
+    ct.chain_trace_launches = 0
     fk.reset_counts()
     p3p.p4p_kernel_launches = ms.meanshift_kernel_launches = rg.rg_kernel_launches = 0
 
 
 def read_counts():
     """Launches since reset_counts: the cost kernel (score mode apart; shapes:
-    by (mode, K, masked)), fb_smooth, the falign kernels (linearize: the
-    one-shot linearise and scores launches; lm_chunk: the LM chunks) and
-    the pose sweep's three (p4p, meanshift, rg)."""
+    by (mode, K, masked)), fb_smooth, the chain trace (ct), the falign
+    kernels (linearize: the one-shot linearise and scores launches;
+    lm_chunk: the LM chunks) and the pose sweep's three (p4p, meanshift,
+    rg)."""
+    from voldor_tpu_torch.ops import chain_trace as ct
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import falign_kernels as fk
     from voldor_tpu_torch.ops import fb_smooth as fb
@@ -1623,7 +1824,7 @@ def read_counts():
 
     return dict(cost=cost_mod.cost_kernel_launches, score=cost_mod.cost_score_launches,
                 shapes={shape_name(k): n for k, n in cost_mod.cost_launch_shapes.items()},
-                fb=fb.fb_smooth_kernel_launches,
+                fb=fb.fb_smooth_kernel_launches, ct=ct.chain_trace_launches,
                 p4p=p3p.p4p_kernel_launches, meanshift=ms.meanshift_kernel_launches,
                 rg=rg.rg_kernel_launches,
                 **fk.read_counts())
@@ -1642,6 +1843,10 @@ def check_counts(what, counts, em_iters):
                              f"expected >= {8 * em_iters}")
     if counts["fb"] < 1:
         raise AssertionError(f"{what}: the fb_smooth kernel was never launched")
+    # each flow-fed EM iteration refreshes the rigidness through the kernel
+    if counts["ct"] < em_iters:
+        raise AssertionError(f"{what}: chain trace kernel launched {counts['ct']} times, "
+                             f"expected >= {em_iters}")
     check_pose_counts(what, counts)
 
 
@@ -1750,9 +1955,11 @@ def phase_slam(np, torch, mode, flows, gt, disps=None, n_timed=3):
 
 def phase_no_sync(np, torch, scene):
     """The three windows again, every kernel-wrapper call of their depth
-    rounds and every call of the pose sweep's _solve_and_fuse (its P4P,
-    meanshift and robust-Gaussian kernels and the draws between them)
-    under torch.cuda.set_sync_debug_mode("error")."""
+    rounds (the rigidness refresh's chain trace included) and every call of
+    the pose sweep's _solve_and_fuse (its P4P, meanshift and
+    robust-Gaussian kernels and the draws between them) under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from voldor_tpu_torch.vo import em
     from voldor_tpu_torch.vo import engine as engine_mod
     from voldor_tpu_torch.vo import pose_step
 
@@ -1769,19 +1976,25 @@ def phase_no_sync(np, torch, scene):
         return wrapper
 
     names = ("fb_smooth", "cost_map_score", "cost_map_accept")
+    em_names = ("update_rigidness_and_tracks",)
     orig = {n: getattr(engine_mod, n) for n in names}
+    em_orig = {n: getattr(em, n) for n in em_names}
     fuse = pose_step._solve_and_fuse
     for n in names:
         setattr(engine_mod, n, guarded(n, orig[n]))
+    for n in em_names:
+        setattr(em, n, guarded(n, em_orig[n]))
     pose_step._solve_and_fuse = guarded("_solve_and_fuse", fuse)
     try:
         run_sequence(np, torch, scene)
     finally:
         for n in names:
             setattr(engine_mod, n, orig[n])
+        for n in em_names:
+            setattr(em, n, em_orig[n])
         pose_step._solve_and_fuse = fuse
     log(f"[no-sync] wrapper calls under set_sync_debug_mode('error') over the 3 windows: {calls}")
-    if set(calls) != set(names) | {"_solve_and_fuse"}:
+    if set(calls) != set(names) | set(em_names) | {"_solve_and_fuse"}:
         raise AssertionError(f"not every kernel wrapper ran: {calls}")
 
 
@@ -3327,10 +3540,11 @@ CLI_H, CLI_W, CLI_F = 370, 1226, 700.0  # KITTI's input size, a focal length at 
 CLI_CHILD = (
     "import json, runpy\n"
     "runpy.run_module('voldor_tpu_torch.demo', run_name='__main__', alter_sys=True)\n"
-    "from voldor_tpu_torch.ops import cost, falign_kernels, fb_smooth, meanshift, p3p, "
-    "robust_gaussian\n"
+    "from voldor_tpu_torch.ops import chain_trace, cost, falign_kernels, fb_smooth, meanshift, "
+    "p3p, robust_gaussian\n"
     "print('[cli-counts] ' + json.dumps(dict(cost=cost.cost_kernel_launches, "
     "score=cost.cost_score_launches, fb=fb_smooth.fb_smooth_kernel_launches, "
+    "ct=chain_trace.chain_trace_launches, "
     "p4p=p3p.p4p_kernel_launches, meanshift=meanshift.meanshift_kernel_launches, "
     "rg=robust_gaussian.rg_kernel_launches, **falign_kernels.read_counts())))\n"
 )
@@ -3584,7 +3798,7 @@ def phase_multichip(np, torch, scene, bi):
         f"are counted as set_sync_debug_mode('warn')'s warnings, {cal[0]} for one .item()")
     if cal[0] < 1:
         raise AssertionError("the sync-debug mode gave no warning for a .item()")
-    total = dict(cost=0, score=0, fb=0, p4p=0, meanshift=0, rg=0)
+    total = dict(cost=0, score=0, fb=0, ct=0, p4p=0, meanshift=0, rg=0)
     ref, recs = None, {}
     for name, mesh in meshes:
         multichip_solve(mesh, cfg, fl, depth0, poses0)  # warm: allocator, cuBLAS handles
@@ -3881,12 +4095,14 @@ def main():
     fb_err, fb_chunk_err = phase_fb(np, torch, bi)
     score_err = phase_score(np, torch, bi, scene)
     accept_frac = phase_accept(np, torch, bi, scene)
+    chain_err, chain_bitwise = phase_chain_trace(np, torch, bi)
     pose_cap = capture_pose_inputs(np, torch, scene)
     pose_err = phase_pose_kernels(np, torch, pose_cap)
     pose_ab = phase_pose_ab(np, torch, scene)
     pose_ab["fuse_launches"] = fuse_launches(torch, pose_cap)
     fb_rec, cost_rec = phase_times(np, torch, bi, sass, opt.parent)
     pose_rec = pose_times(np, torch, pose_cap)
+    chain_rec = chain_trace_times(np, torch, bi)
     # the full-SLAM scene of the mapping half (phases 12-16); the falign
     # kernels' times at its batches' shapes
     sc = build_slam_scene(np, torch, SLAM_E2E_FLOWS)
@@ -3932,7 +4148,8 @@ def main():
            f"({parent_round['a'] / parent_round['b']:.3f}x)"))
     log(f"[slice] bootstrap route: {route}; EM iterations per window {iters}; "
         f"cost kernel launches {win_counts['cost']} ({win_counts['score']} in score mode), "
-        f"fb_smooth kernel launches {win_counts['fb']}, P4P / meanshift / robust Gaussian "
+        f"fb_smooth kernel launches {win_counts['fb']}, chain trace kernel launches "
+        f"{win_counts['ct']}, P4P / meanshift / robust Gaussian "
         f"{win_counts['p4p']} / {win_counts['meanshift']} / {win_counts['rg']}; cold wall s "
         f"{[round(x, 4) for x in walls0]}")
     check_counts("windows", win_counts, sum(iters))
@@ -4132,6 +4349,20 @@ def main():
                 "chain_floor_by_cluster_us", "cholesky_ms")},
         },
         *pose_records(pose_rec, pose_err, pose_ab, paths, path_names, multi),
+        {
+            "name": "chain_trace",
+            "route": "cuda",
+            "source": "voldor_tpu_torch/csrc/chain_trace.cu",
+            "replaces": "voldor_tpu_torch/ops/chain_trace.py:chain_trace_reference "
+                        "(voldor_tpu/vo/em.py:95, :325, :332)",
+            "launches": sum(c["ct"] for c in paths) + multi["ct"],
+            "launches_by_path": {n: c["ct"] for n, c in zip(path_names, paths)},
+            "launches_multichip": multi["ct"],
+            "max_abs_err": chain_err,
+            "rigidness_bitwise_share": chain_bitwise,
+            "library_ms": None,
+            **chain_rec,
+        },
     ]}))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

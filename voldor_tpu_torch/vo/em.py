@@ -21,6 +21,9 @@ import numpy as np
 import torch
 
 from voldor_tpu_torch.ops import fisk
+from voldor_tpu_torch.ops.chain_trace import (
+    _backproject, _pixel_grid, _project_safe, chain_flow_terms, chain_trace,
+)
 from voldor_tpu_torch.ops.cost import cost_map_tracked_reference, normalize_cost
 from voldor_tpu_torch.ops.image import bilinear_sample
 from voldor_tpu_torch.utils.profiling import device_sync
@@ -59,63 +62,6 @@ class EmParams(NamedTuple):
             delta=f32(cfg.delta),
             disp_delta=f32(cfg.disp_delta if has_disparity else -1.0),
         )
-
-
-def _backproject(xs, ys, depth, p: EmParams):
-    ox = fisk.div_scalar(xs - p.cx, p.fx) * depth
-    oy = fisk.div_scalar(ys - p.cy, p.fy) * depth
-    return ox, oy, depth
-
-
-def _pixel_grid(h, w, device, dtype=torch.float32):
-    ys, xs = torch.meshgrid(
-        torch.arange(h, device=device), torch.arange(w, device=device), indexing="ij"
-    )
-    return xs.to(dtype), ys.to(dtype)
-
-
-def _transform(R, t, ox, oy, oz):
-    nx = R[0, 0] * ox + R[0, 1] * oy + R[0, 2] * oz + t[0]
-    ny = R[1, 0] * ox + R[1, 1] * oy + R[1, 2] * oz + t[1]
-    nz = R[2, 0] * ox + R[2, 1] * oy + R[2, 2] * oz + t[2]
-    return nx, ny, nz
-
-
-def _project_safe(nx, ny, nz, p: EmParams):
-    safe_nz = torch.where(torch.abs(nz) < 1e-12, 1e-12, nz)
-    px = (p.fx * nx + p.cx * safe_nz) / safe_nz
-    py = (p.fy * ny + p.cy * safe_nz) / safe_nz
-    return px, py
-
-
-def chain_flow_terms(depth, flows, Rs, ts, active_n: int, p: EmParams):
-    """Walk each frame-0 point through the window.
-
-    Returns (rigid_x, rigid_y, obs_x, obs_y, inb, px1, py1), each (N, h, w):
-    rigid flow, observed flow sampled at the traced position, in-bounds
-    mask and the traced position itself (``em.py:95``).
-    """
-    h, w = depth.shape
-    N = flows.shape[0]
-    xs, ys = _pixel_grid(h, w, depth.device)
-    ox, oy, oz = _backproject(xs, ys, depth, p)
-    px1, py1 = xs, ys
-    outs = []
-    for f in range(N):
-        active = f < active_n
-        nx, ny, nz = _transform(Rs[f], ts[f], ox, oy, oz)
-        px2, py2 = _project_safe(nx, ny, nz, p)
-        inb = (nz > 0) & (px1 >= 0) & (px1 < w) & (py1 >= 0) & (py1 < h) & active
-        if active:
-            obs = bilinear_sample(flows[f], px1, py1)
-            obx, oby = obs[..., 0], obs[..., 1]
-        else:
-            obx = oby = torch.zeros_like(px1)
-        outs.append((px2 - px1, py2 - py1, obx, oby, inb, px1, py1))
-        px1 = torch.where(inb, px2, px1)
-        py1 = torch.where(inb, py2, py1)
-        ox, oy, oz = nx, ny, nz
-    return tuple(torch.stack(c) for c in zip(*outs))
 
 
 def prior_terms(depth, priors, dp_Rs, dp_ts, p: EmParams):
@@ -213,18 +159,16 @@ def _slot_weights(D: int, p: EmParams, device):
 
 
 def update_rigidness(depth, flows, Rs, ts, active_n: int, p: EmParams):
-    """Per-frame rigidness maps (``em.py:325``)."""
-    rx, ry, obx, oby, inb, _, _ = chain_flow_terms(depth, flows, Rs, ts, active_n, p)
-    r = fisk.rigidness_xy(rx, ry, obx, oby, p.lam, p.abs_resize_factor)
-    return torch.where(inb, r, 0.0)
+    """Per-frame rigidness maps (``em.py:325``): one chain trace
+    (``ops/chain_trace.py``), without the track planes."""
+    return chain_trace(depth, flows, Rs, ts, active_n, p, tracks=False)[0]
 
 
 def update_rigidness_and_tracks(depth, flows, Rs, ts, active_n: int, p: EmParams):
     """Rigidness refresh plus the 'anchored' track planes from one chain
     trace (``em.py:332``): (rigidness, (px1, py1, obx, oby), inb)."""
-    rx, ry, obx, oby, inb, px1, py1 = chain_flow_terms(depth, flows, Rs, ts, active_n, p)
-    r = fisk.rigidness_xy(rx, ry, obx, oby, p.lam, p.abs_resize_factor)
-    return torch.where(inb, r, 0.0), (px1, py1, obx, oby), inb
+    rigidness, inb, track = chain_trace(depth, flows, Rs, ts, active_n, p)
+    return rigidness, track, inb
 
 
 def update_prior_confs(depth, priors, dp_confs, dp_Rs, dp_ts, p: EmParams):

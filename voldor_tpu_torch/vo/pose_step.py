@@ -24,13 +24,14 @@ from typing import NamedTuple
 import torch
 
 from voldor_tpu_torch.ops import ap3p, lie, p3p
+from voldor_tpu_torch.ops.chain_trace import _backproject, _pixel_grid, _transform
 from voldor_tpu_torch.ops.image import bilinear_sample
 from voldor_tpu_torch.ops.meanshift import draw_meanshift_trials, meanshift
 from voldor_tpu_torch.ops.p3p import draw_p4p_indices
 from voldor_tpu_torch.ops.robust_gaussian import fit_robust_gaussian
 from voldor_tpu_torch.parallel import hints
 from voldor_tpu_torch.utils.profiling import device_sync, host_read
-from voldor_tpu_torch.vo.em import EmParams, _backproject, _pixel_grid, _transform
+from voldor_tpu_torch.vo.em import EmParams
 
 
 class PoseStepResult(NamedTuple):
