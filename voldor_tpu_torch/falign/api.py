@@ -16,6 +16,7 @@ import torch
 from voldor_tpu_torch.falign.residual import precompute_maps
 from voldor_tpu_torch.falign.solver import (LaneProblem, align_scores, pair_covariances,
                                             solve_lanes)
+from voldor_tpu_torch.utils import profiling
 from voldor_tpu_torch.vo.engine import resolve_device
 
 # iterations between two reads of the lanes' done flags: the JAX package's
@@ -203,24 +204,32 @@ def falign_pairs(
     ``iters_coarse`` (coarse-grid iterations, 0 without coarse-to-fine).
     coarse_stride > stride runs up to coarse_iters iterations on the
     coarse grid first, then at most fine_iters at stride; scores and
-    covariances come from the fine stride."""
+    covariances come from the fine stride.
+
+    Traced (``utils/profiling.py``) where a record is open: the maps'
+    upload and the problem, and each phase's start, in ``falign.setup``;
+    each LM chunk in ``falign.lm``; the covariances, scores and the reads
+    of the results in ``falign.finish``; ``falign_pairs`` counts the
+    pairs."""
     dev = resolve_device(device)
     depths = np.ascontiguousarray(depths, np.float32)
     P, two, h, w = depths.shape
     assert two == 2
     use_photo = images is not None and crw > 0
     shape = (P * 2, h, w)
-    maps = precompute_maps(_tensor(depths, dev, shape), _tensor(weights, dev, shape),
-                           _tensor(images, dev, shape), fx, fy, cx, cy)
+    profiling.count("falign_pairs", P)
+    with profiling.span("falign.setup"):
+        maps = precompute_maps(_tensor(depths, dev, shape), _tensor(weights, dev, shape),
+                               _tensor(images, dev, shape), fx, fy, cx, cy)
 
-    params0 = np.zeros((P, 2, 9), np.float32)
-    if poses_init is not None:
-        params0[:, :, :6] = np.asarray(poses_init, np.float32)
-    gauge_U = np.zeros((1 if optimize_7dof else 0, 18), np.float32)
-    if optimize_7dof:
-        gauge_U[0, 6] = gauge_U[0, 15] = 1.0
-    prob = _problem(maps, ((0, 1), (1, 0)), 2, fx, fy, cx, cy, vbf, crw, use_photo,
-                    _dim_mask(2, optimize_7dof, use_photo), gauge_U, dev)
+        params0 = np.zeros((P, 2, 9), np.float32)
+        if poses_init is not None:
+            params0[:, :, :6] = np.asarray(poses_init, np.float32)
+        gauge_U = np.zeros((1 if optimize_7dof else 0, 18), np.float32)
+        if optimize_7dof:
+            gauge_U[0, 6] = gauge_U[0, 15] = 1.0
+        prob = _problem(maps, ((0, 1), (1, 0)), 2, fx, fy, cx, cy, vbf, crw, use_photo,
+                        _dim_mask(2, optimize_7dof, use_photo), gauge_U, dev)
 
     phases = []
     c2f = coarse_stride > stride and coarse_iters > 0
@@ -228,12 +237,13 @@ def falign_pairs(
         phases.append((int(coarse_stride), int(coarse_iters), CHUNK_COARSE))
     phases.append((int(stride), int(fine_iters), CHUNK_FINE))
     params_t, _, iters = solve_lanes(prob, torch.as_tensor(params0, device=dev), phases)
-    lanes = torch.arange(P, device=dev)
-    covars_t, _ = pair_covariances(prob, params_t, lanes, int(stride))
-    vis_t, cons_t = align_scores(prob, params_t, lanes, float(consistency_residual_bound),
-                                 int(stride))
-    params_b, covars_b, vis_b, cons_b = (
-        t.cpu().numpy() for t in (params_t, covars_t, vis_t, cons_t))
+    with profiling.span("falign.finish"):
+        lanes = torch.arange(P, device=dev)
+        covars_t, _ = pair_covariances(prob, params_t, lanes, int(stride))
+        vis_t, cons_t = align_scores(prob, params_t, lanes, float(consistency_residual_bound),
+                                     int(stride))
+        params_b, covars_b, vis_b, cons_b = (
+            t.cpu().numpy() for t in (params_t, covars_t, vis_t, cons_t))
     iters_fine = iters[-1]
     iters_coarse = iters[0] if c2f else np.zeros(P, np.int32)
 

@@ -30,6 +30,7 @@ import torch
 from voldor_tpu_torch.falign.residual import (FrameMaps, lane_pairs, pair_jacobians,
                                               pair_residual_map)
 from voldor_tpu_torch.ops import falign_kernels as fk
+from voldor_tpu_torch.utils import profiling
 
 
 class LaneProblem(NamedTuple):
@@ -193,21 +194,25 @@ def solve_lanes(prob: LaneProblem, params0, phases):
     cost = None
     phase_iters = []
     for stride, budget, chunk in phases:
-        st = phase_init(prob, params, all_lanes, stride)
+        with profiling.span("falign.setup"):
+            st = phase_init(prob, params, all_lanes, stride)
         it_host = np.zeros(L, np.int32)
         live = np.arange(L)
         used = 0
         while live.size and used < budget:
             n = min(chunk, budget - used)
-            if live.size == L:
-                st = lm_iterate(prob, st, all_lanes, stride, n)
-                done_it = torch.stack([st.done.to(torch.int32), st.it])
-            else:
-                idx = torch.as_tensor(live, device=dev)
-                sub = lm_iterate(prob, _take(st, idx), idx, stride, n)
-                st = _put(st, idx, sub)
-                done_it = torch.stack([sub.done.to(torch.int32), sub.it])
-            flags = done_it.cpu().numpy()  # the one read per chunk
+            profiling.count("falign_chunks")
+            with profiling.span("falign.lm"):
+                if live.size == L:
+                    st = lm_iterate(prob, st, all_lanes, stride, n)
+                    done_it = torch.stack([st.done.to(torch.int32), st.it])
+                else:
+                    idx = torch.as_tensor(live, device=dev)
+                    sub = lm_iterate(prob, _take(st, idx), idx, stride, n)
+                    st = _put(st, idx, sub)
+                    done_it = torch.stack([sub.done.to(torch.int32), sub.it])
+                # the one read per chunk
+                flags = profiling.host_read("falign.flags", lambda t: t.cpu().numpy(), done_it)
             it_host[live] = flags[1]
             used += n
             live = live[flags[0] == 0]

@@ -10,6 +10,7 @@ import numpy as np
 from voldor_tpu_torch.ops import lie
 from voldor_tpu_torch.pgo.reduce import chain_reduce, redistribute_chain
 from voldor_tpu_torch.pgo.solver import build_problem, pgo_solve_dense_jit, pgo_solve_jit
+from voldor_tpu_torch.utils import profiling
 from voldor_tpu_torch.vo.engine import resolve_device
 
 # The dense Cholesky LM serves graphs up to this many poses, matrix-free CG
@@ -32,7 +33,9 @@ def pgo(
 ) -> np.ndarray:
     """reduce_threshold_dofs: tangent-dim count above which degree-2 chain
     vertices are marginalised before the solve (pgo/reduce.py; tests pass
-    0 to exercise it on small graphs)."""
+    0 to exercise it on small graphs). Where a trace record is open on the
+    thread (``utils/profiling.py``), ``pgo_iters`` counts the LM
+    iterations."""
     dev = resolve_device(device)
     poses = np.ascontiguousarray(poses, np.float32)
     edges_idx = np.ascontiguousarray(edges_idx, np.int32)
@@ -75,4 +78,6 @@ def pgo(
     out[:, :3] = lie.quat_to_rvec(solved.q).cpu().numpy()
     out[:, 3:6] = solved.p.cpu().numpy()
     out[:, 6] = solved.s.cpu().numpy()
+    if profiling.recording():  # the solve has ended: this read waits for nothing
+        profiling.count("pgo_iters", int(iters))
     return out

@@ -95,7 +95,10 @@ def polish_T44(pose: np.ndarray) -> None:
 
 def geometry_check(kp1, des1, kp2, des2) -> float:
     """ORB BF-Hamming match + fundamental-matrix RANSAC inlier rate
-    (slam_utils.py:4-16). Requires cv2."""
+    (slam_utils.py:4-16). Requires cv2. Where OpenCV's estimator raises
+    (OpenCV 4.13.0 raised (-215) ``_rowRange`` on one keyframe pair of
+    ~200 keypoints each), the pair has no verified geometry: 0.0, as when
+    no mask comes back. The JAX package lets the error kill the VO thread."""
     import cv2
 
     bf = cv2.BFMatcher(cv2.NORM_HAMMING, crossCheck=True)
@@ -109,7 +112,10 @@ def geometry_check(kp1, des1, kp2, des2) -> float:
         return 0.0
     pts1 = np.asarray(pts1, np.float32)
     pts2 = np.asarray(pts2, np.float32)
-    F, mask = cv2.findFundamentalMat(pts1, pts2, cv2.FM_RANSAC)
+    try:
+        F, mask = cv2.findFundamentalMat(pts1, pts2, cv2.FM_RANSAC)
+    except cv2.error:
+        return 0.0
     if mask is None:
         return 0.0
     return (2.0 * float(np.sum(mask))) / (len(kp1) + len(kp2))

@@ -22,6 +22,7 @@ the JAX package's TPU compile warm-up thread has no counterpart.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -399,8 +400,13 @@ class VOLDOR_SLAM:
         under a short write lock. Frames the VO thread appended during the
         solve chain off the last snapshot frame by pure VO edges, so they
         and Twc_cur are rebased by that frame's world-frame correction;
-        _map_version invalidates in-flight VO priors built on the old map."""
-        with self._map_lock.w_locked():
+        _map_version invalidates in-flight VO priors built on the old map.
+        A ``pgo.solve`` pass of the mapping trace (``_map_pass``)."""
+        with self._map_pass("pgo.solve"):
+            self._solve_pgo(fid_start)
+
+    def _solve_pgo(self, fid_start):
+        with self._map_lock.w_locked(), profiling.span("pgo.snapshot"):
             n_frames_total = len(self.frames) + 1  # +1 for Twc_cur
             n_edges_total = len(self.edges)
             n_frames = n_frames_total - fid_start
@@ -429,16 +435,19 @@ class VOLDOR_SLAM:
                     n_edges += 1
             if n_edges == 0:
                 return
+        profiling.count("pgo_poses", int(n_frames))
+        profiling.count("pgo_edges", int(n_edges))
 
         t_solve = time.perf_counter()
-        poses_ret = pgo_api.pgo(
-            poses=poses, poses_idx=poses_idx, edges_idx=edges_idx[:n_edges],
-            edges_pose=edges_pose[:n_edges], edges_covar=edges_covar[:n_edges],
-            optimize_7dof=self.mode == "mono", device=self.device,
-        )
+        with profiling.span("pgo.lm"):
+            poses_ret = pgo_api.pgo(
+                poses=poses, poses_idx=poses_idx, edges_idx=edges_idx[:n_edges],
+                edges_pose=edges_pose[:n_edges], edges_covar=edges_covar[:n_edges],
+                optimize_7dof=self.mode == "mono", device=self.device,
+            )
         t_solve = time.perf_counter() - t_solve
 
-        with self._map_lock.w_locked():
+        with self._map_lock.w_locked(), profiling.span("pgo.apply"):
             last = n_frames_total - 2  # last real frame in the snapshot
             # world-frame correction of the last snapshot frame against its
             # current pose: frames appended since are relative to it
@@ -489,9 +498,14 @@ class VOLDOR_SLAM:
 
         kind: 'local' (one photo + geo stage, pose init from the current
         map) or 'lc' (geometry, then photometric from its result, identity
-        init, mono median-10 depth normalisation)."""
+        init, mono median-10 depth normalisation). A ``map.links`` pass of
+        the mapping trace (``_map_pass``)."""
         if not pair_list:
             return
+        with self._map_pass("map.links"):
+            self._establish_links_batch(pair_list, kind)
+
+    def _establish_links_batch(self, pair_list, kind):
         is_lc = kind == "lc"
         stride = self.falign_lc_link_stride if is_lc else self.falign_local_link_stride
         d_blur = self.falign_lc_depth_gblur_width if is_lc else self.falign_local_depth_gblur_width
@@ -576,6 +590,8 @@ class VOLDOR_SLAM:
                           f"{consistency:.4f} / {visibility:.4f}{tag}")
                 if gate_cv or gate_rank:
                     continue
+                if is_lc:
+                    profiling.count("lc_links")
                 med = scalings[2 * i: 2 * i + 2] if is_lc and self.mode == "mono" else None
                 self._append_falign_edges(
                     list(kf_ids), sub, edge_type="falign-lc" if is_lc else "falign-local",
@@ -978,7 +994,8 @@ class VOLDOR_SLAM:
         loop-closure link depends on thread timing."""
         self.frames[fid].is_keyframe = True
         if self._use_loop_closure:
-            self._loop_closure_query(fid, len(self.kf_ids))
+            with profiling.span("lc.query"):
+                self._loop_closure_query(fid, len(self.kf_ids))
         self.kf_ids.append(fid)
 
     def _loop_closure_query(self, fid, kf_ord):
@@ -1013,11 +1030,16 @@ class VOLDOR_SLAM:
         print("VO thread started")
         print(f"VO mode = {self.mode}")
         self.end_of_vo = False
-        while self.process_vo():
-            self._viewer_signal_map_changed = True
-            while self._block_vo_signal:
-                time.sleep(0.01)
-        self.end_of_vo = True
+        try:
+            while self.process_vo():
+                self._viewer_signal_map_changed = True
+                while self._block_vo_signal:
+                    time.sleep(0.01)
+        finally:
+            # also when process_vo raises: the mapping thread then flushes
+            # and ends instead of waiting for frames that never come (the
+            # JAX package sets it only on a normal return)
+            self.end_of_vo = True
         print("VO thread ended.")
         print(f"{len(self.kf_ids)} keyframes registered.")
 
@@ -1031,10 +1053,33 @@ class VOLDOR_SLAM:
         pgo_refine_kf_interval keyframes that brought new links, a global
         one at the end. Loop-closure candidates (append_kf's, with loop
         closure on) are linked at once, and the next PGO after an LC link is
-        global."""
+        global.
+
+        While the metrics logger is open, each pass of the thread is traced
+        (``utils/profiling.py``, a record of its own on this thread) and
+        logged as a ``map_pass`` event: a keyframe registration
+        (``map.register``, counting ``map_backlog_kf``, the keyframes
+        published and not yet registered), a link batch (``map.links`` >
+        ``falign.setup``, ``falign.lm`` a chunk, ``falign.finish``;
+        ``falign_pairs``, ``falign_chunks``, ``lc_links``) or a PGO
+        (``pgo.solve`` > ``pgo.snapshot``, ``pgo.lm``, ``pgo.apply``;
+        ``pgo_poses``, ``pgo_edges``, ``pgo_iters``)."""
         print("Mapping thread started")
         self._mapping_loop()
         print("Mapping thread end.")
+
+    @contextlib.contextmanager
+    def _map_pass(self, root):
+        """One pass of the mapping thread, traced under ``root`` while the
+        metrics logger is open, and logged as a ``map_pass`` event."""
+        if not self.metrics.enabled or profiling.recording():
+            yield
+            return
+        profiling.open_record(root)
+        try:
+            yield
+        finally:
+            self.metrics.log("map_pass", kind=root, **profiling.close_record())
 
     def _mapping_loop(self):
         n_kfs_registered = 0
@@ -1125,24 +1170,26 @@ class VOLDOR_SLAM:
                 # VO blocks only for the registration bookkeeping; the link
                 # solves and the PGO run with VO live
                 self._block_vo_signal = True
-                priority_mat[...] = 0
+                with self._map_pass("map.register"):
+                    profiling.count("map_backlog_kf", n_kfs_cur - n_kfs_registered)
+                    priority_mat[...] = 0
 
-                if not self.disable_local_mapping:
-                    for f1 in range(max(0, n_kfs_cur - 2 * self.mp_temporal_sigma), n_kfs_cur):
-                        for f2 in range(f1 + 1, min(n_kfs_cur, f1 + 2 * self.mp_spatial_sigma)):
-                            priority_mat[f1, f2] = max(
-                                priority_mat[f1, f2],
-                                np.exp(
-                                    -((f1 - f2) / self.mp_spatial_sigma) ** 2
-                                    - ((n_kfs_cur - f1) * (n_kfs_cur - f2)
-                                       / self.mp_temporal_sigma**2)
-                                ),
-                            )
+                    if not self.disable_local_mapping:
+                        for f1 in range(max(0, n_kfs_cur - 2 * self.mp_temporal_sigma), n_kfs_cur):
+                            for f2 in range(f1 + 1, min(n_kfs_cur, f1 + 2 * self.mp_spatial_sigma)):
+                                priority_mat[f1, f2] = max(
+                                    priority_mat[f1, f2],
+                                    np.exp(
+                                        -((f1 - f2) / self.mp_spatial_sigma) ** 2
+                                        - ((n_kfs_cur - f1) * (n_kfs_cur - f2)
+                                           / self.mp_temporal_sigma**2)
+                                    ),
+                                )
 
-                _merge_lc_candidates(n_kfs_cur)
+                    _merge_lc_candidates(n_kfs_cur)
 
-                priority_mat[link_mask] = 0
-                n_kfs_registered = n_kfs_cur
+                    priority_mat[link_mask] = 0
+                    n_kfs_registered = n_kfs_cur
                 self._block_vo_signal = False
 
                 pgo_due = n_kfs_cur >= next_pgo_kfid

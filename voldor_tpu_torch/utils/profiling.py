@@ -9,9 +9,10 @@ starts a record on the calling thread (the SLAM layer opens one for each
 under ``site``; ``device_sync(site, device)`` does the same for the
 statements it encloses, an op that waits for the device only where
 ``device`` is a CUDA device (a copy to the card from pageable host memory,
-an op that checks its result on the host); ``count(name)`` counts an
-event; ``close_record()`` ends the root span and returns the record's
-summary.
+an op that checks its result on the host); ``count(name, n)`` adds n to a
+counter; ``recording()`` says whether a record is open on the thread (a
+count that needs a read of the device is made only then);
+``close_record()`` ends the root span and returns the record's summary.
 
 Spans never synchronise the device: they time the host, and the only
 device waits recorded are those of the program's own reads. While a
@@ -169,11 +170,17 @@ def device_sync(site: str, device):
     return rec.sync
 
 
-def count(name: str) -> None:
-    """Count one ``name`` event in this thread's record."""
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` (one event by default) to the counter ``name`` in this
+    thread's record."""
     rec = _local.rec
     if rec is not None:
-        rec.counts[name] = rec.counts.get(name, 0) + 1
+        rec.counts[name] = rec.counts.get(name, 0) + n
+
+
+def recording() -> bool:
+    """Whether a record is open on this thread."""
+    return _local.rec is not None
 
 
 def _summarize(rec: _Record) -> dict:
