@@ -167,15 +167,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    and wrong inputs refused (a CPU tensor, wrong shapes and types, a lane
    too large for shared memory, a cluster the device cannot hold);
 13. PGO: drifted circle graphs with loop edges at 60 and 600 poses through
-   pgo() (dense), pgo(reduce_threshold_dofs=0) (chain reduction) and
-   pgo_solve_jit (matrix-free CG), on the card and on the CPU: poses within
-   PGO_POSE_TOL;
+   pgo() and pgo(reduce_threshold_dofs=0) (chain reduction), on the card
+   and on the CPU: poses within PGO_POSE_TOL; then pgo() with poses_idx
+   (the SLAM's call) on the card at 600, 1,100 and 4,541 poses: the cost
+   and the poses against the plain float64 LM of benchmark/reference_map.py
+   within the mapped drive's limits, the time of an LM iteration and the
+   peak device memory;
 14. mapping times: falign_pairs per call and per batched LM iteration at 4
    and 16 pairs with its kernel launches and host syncs (torch.profiler),
    the 4-pair call split into set-up (maps, phase starts), chunks and
    finish (synchronised timers), the launches of one chunk of 8 LM
    iterations alone (at most one per iteration, and at most 37 host syncs
-   per 4-pair call), PGO dense and CG per solve at 60 and 600 poses;
+   per 4-pair call), the dense PGO per solve at 60 and 600 poses;
 15. slam-full-mono: the full-SLAM scene through VOLDOR_SLAM(mode="mono",
    device="cuda") configured exactly as bench.py:_make_slam_e2e, with
    enable_loop_closure() (the built-in vocabulary), vo_thread and
@@ -2036,6 +2039,13 @@ FALIGN_LIMITS = {
 LC_PAIRS = [(5, 55), (10, 50), (15, 45), (20, 40)]
 FALIGN_COV_RTOL = 1e-3  # covariances at the same parameters
 PGO_POSE_TOL = 1e-3  # positions and rotation entries, card vs the CPU run
+# pgo() in the SLAM's form on the card: a graph past 1024 poses, and KITTI
+# 00's 4,541 frames, the longest KITTI sequence
+PGO_DENSE_SIZES = (600, 1100, 4541)
+# the mapped drive's limits on its last global PGO
+# (benchmark/limits/kitti-stereo-slam.mapped-drive.json)
+PGO_COST_GAP = 1.00001
+PGO_POSE_GAP = 1e-3
 
 
 def build_slam_scene(np, torch, n_flows, h=H, w=W, focal=FX):
@@ -3102,54 +3112,91 @@ def _pose_err(np, torch, a, b):
     return max(float(np.abs(a[:, 3:7] - b[:, 3:7]).max()), float(np.abs(R[0] - R[1]).max()))
 
 
+def plain_pgo_check(np, n, g, out):
+    """pgo()'s answer out on the circle graph g of n poses against the plain
+    float64 LM of the mapped drive's yardstick (``benchmark/reference_map.py``,
+    as its ``pgo_check``): (the program's float64 cost, the plain optimum's,
+    their ratio ``pgo_cost_gap`` over an optimum of no less than
+    ``COST_FLOOR`` an edge, the largest position gap over the circle's
+    diameter of 20 ``pgo_pose_gap``, the plain LM's iterations)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "reference_map", ROOT / "benchmark" / "reference_map.py")
+    rm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rm)
+    pg = rm.PoseGraph(g[0], np.arange(n), g[1], g[2], g[3], False)
+    plain, plain_cost, iters = pg.solve()
+    prog = pg.state_of(out)
+    cost = pg.cost(prog)
+    gap = float(np.linalg.norm(prog[0] - plain[0], axis=1).max()) / 20.0
+    return cost, plain_cost, cost / max(plain_cost, rm.COST_FLOOR * len(pg.a)), gap, iters
+
+
 def phase_pgo(np, torch):
-    """pgo() on the card against the CPU at 60 and 600 poses (dense), then
-    pgo_solve_jit (matrix-free CG) and pgo(reduce_threshold_dofs=0) (chain
-    reduction): poses within PGO_POSE_TOL. Returns the largest error."""
-    from voldor_tpu_torch.ops.lie import quat_to_rvec
+    """pgo() on the card against the CPU at 60 and 600 poses, as given and
+    with the chain reduction (reduce_threshold_dofs=0): poses within
+    PGO_POSE_TOL. Then pgo() in the SLAM's form (poses_idx given: no chain
+    reduction) on the card at PGO_DENSE_SIZES poses, held to the plain
+    float64 LM (``plain_pgo_check``) within the mapped drive's limits,
+    PGO_COST_GAP and PGO_POSE_GAP, with the time of an LM iteration and the
+    peak device memory. Returns the largest card-vs-CPU error."""
     from voldor_tpu_torch.pgo import api as pgo_api
-    from voldor_tpu_torch.pgo import solver as pgo_solver
 
     worst = 0.0
     for n in (60, 600):
         g = circle_graph(np, torch, n, seed=n)
-        dense_cost = float("nan")
         for kw in ({}, {"reduce_threshold_dofs": 0}):
             out, solves = {}, {}
             for dev in ("cuda", "cpu"):
-                dense, cg, reduced = [], [], []
+                dense, reduced = [], []
                 with spying(pgo_api, "pgo_solve_dense_jit", dense), \
-                        spying(pgo_api, "pgo_solve_jit", cg), \
                         spying(pgo_api, "chain_reduce", reduced):
                     out[dev] = pgo_api.pgo(*g, device=dev, **kw)
-                if dev == "cuda" and not kw and dense:
-                    dense_cost = float(dense[0][1])
                 solves[dev] = (("reduced to %d poses, " % len(reduced[0][0])) if reduced else "") + \
-                    ", ".join(f"{name} {int(r[2])} LM iterations, cost {float(r[1]):.4e}"
-                              for name, rs in (("dense", dense), ("cg", cg)) for r in rs)
+                    ", ".join(f"dense {int(r[2])} LM iterations, cost {float(r[1]):.4e}" for r in dense)
             err = _pose_err(np, torch, out["cuda"], out["cpu"])
             worst = max(worst, err)
             log(f"[pgo] pgo() n={n} {kw or ''}: card {solves['cuda']}; cpu {solves['cpu']}; "
                 f"poses max err {err:.3e}")
-        # the CG path, called directly
-        res = {}
-        for dev in ("cuda", "cpu"):
-            prob, _, _ = pgo_solver.build_problem(g[0], None, g[1], g[2], g[3], False,
-                                                  torch.device(dev))
-            sol, cost, iters = pgo_solver.pgo_solve_jit(prob)
-            res[dev] = (np.concatenate([quat_to_rvec(sol.q).cpu().numpy(),
-                                        sol.p.cpu().numpy(), sol.s.cpu().numpy()[:, None]], 1),
-                        float(cost), int(iters))
-        err = _pose_err(np, torch, res["cuda"][0], res["cpu"][0])
-        worst = max(worst, err)
-        log(f"[pgo] pgo_solve_jit (CG) n={n}: cost / iterations card {res['cuda'][1:]} cpu "
-            f"{res['cpu'][1:]}; poses max err {err:.3e}")
-        cap = inspect.signature(pgo_solver.pgo_solve_jit).parameters["max_iters"].default
-        log(f"[pgo] CG path n={n} converged: card {res['cuda'][2] < cap}, cpu {res['cpu'][2] < cap} "
-            f"(LM iterations {res['cuda'][2]} / {res['cpu'][2]} against the cap of {cap}; final "
-            f"cost {res['cuda'][1]:.4e} on the card against the dense solver's {dense_cost:.4e})")
     if worst > PGO_POSE_TOL:
         raise AssertionError(f"PGO on the card disagrees with the CPU run ({worst:.3e})")
+
+    real = pgo_api.pgo_solve_dense_jit
+    for n in PGO_DENSE_SIZES:
+        g = circle_graph(np, torch, n, seed=n)
+        timed = []
+
+        def solve(prob):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real(prob)
+            torch.cuda.synchronize()
+            timed.append((time.perf_counter() - t0, int(res[2]), float(res[1])))
+            return res
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pgo_api.pgo_solve_dense_jit = solve
+        try:
+            out = pgo_api.pgo(*g, poses_idx=np.arange(n), device="cuda")
+        finally:
+            pgo_api.pgo_solve_dense_jit = real
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cost64, plain_cost, cost_gap, pose_gap, plain_iters = plain_pgo_check(np, n, g, out)
+        plain_s = time.perf_counter() - t0
+        (dt, iters, cost), = timed
+        log(f"[pgo] dense LM n={n} (poses_idx given, D = {7 * n}): {iters} LM iterations in "
+            f"{dt:.4f} s, {dt / max(iters, 1) * 1e3:.3f} ms an iteration, cost {cost:.6e} "
+            f"(float64 {cost64:.6e}); peak device memory {peak:.3f} GB; the plain float64 LM's "
+            f"cost {plain_cost:.6e} ({plain_iters} iterations, {plain_s:.1f} s on the host): "
+            f"pgo_cost_gap {cost_gap:.10f} (limit {PGO_COST_GAP}), pgo_pose_gap {pose_gap:.3e} "
+            f"(limit {PGO_POSE_GAP})")
+        if not (cost_gap <= PGO_COST_GAP and pose_gap <= PGO_POSE_GAP):
+            raise AssertionError(f"PGO on the card at {n} poses misses the plain float64 LM: "
+                                 f"pgo_cost_gap {cost_gap}, pgo_pose_gap {pose_gap}")
     return worst
 
 
@@ -3174,7 +3221,7 @@ def phase_mapping_times(np, torch, sc):
     (with images, the local-link settings), with its launches and host
     syncs, and the 4-pair call split into its set-up (the maps, each
     phase's start), its chunks and its finish (covariances, scores); the
-    launches of one chunk of 8 LM iterations alone; PGO dense and CG per
+    launches of one chunk of 8 LM iterations alone; the dense PGO per
     solve at 60 and 600 poses."""
     from voldor_tpu_torch.falign import api as falign_api
     from voldor_tpu_torch.falign import solver as fsolver
@@ -3274,17 +3321,16 @@ def phase_mapping_times(np, torch, sc):
         g = circle_graph(np, torch, n, seed=n)
         prob, _, _ = pgo_solver.build_problem(g[0], None, g[1], g[2], g[3], False,
                                               torch.device("cuda"))
-        for name, solve in (("dense", pgo_solver.pgo_solve_dense_jit), ("cg", pgo_solver.pgo_solve_jit)):
-            solve(prob, max_iters=2)  # warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, cost, iters = solve(prob)
-            iters = int(iters)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            out[f"pgo_{name}_{n}"] = dict(solve_s=dt, iters=iters)
-            log(f"[times] PGO {name} n={n}: {dt:.4f} s per solve, {iters} LM iterations, "
-                f"{dt / max(iters, 1) * 1e3:.3f} ms per iteration, cost {float(cost):.4e}")
+        pgo_solver.pgo_solve_dense_jit(prob, max_iters=2)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cost, iters = pgo_solver.pgo_solve_dense_jit(prob)
+        iters = int(iters)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[f"pgo_dense_{n}"] = dict(solve_s=dt, iters=iters)
+        log(f"[times] PGO dense n={n}: {dt:.4f} s per solve, {iters} LM iterations, "
+            f"{dt / max(iters, 1) * 1e3:.3f} ms per iteration, cost {float(cost):.4e}")
     return out
 
 

@@ -4,7 +4,7 @@ JAX package, on the CPU, over the drifted circle graphs of tests/test_pgo.py.
 Tolerances, and why:
 * build_problem (remap, whitening, dropped edges): atol 1e-6; the edge
   residuals and forward-mode Jacobians: 1e-5 of their largest entry.
-* The first LM iterations (2 dense, 3 CG), while the cost is far above
+* The first 2 LM iterations, while the cost is far above
   float noise: poses within 1e-5, the cost within 1e-2 relative (it fell
   by 1e3-1e5 from its start, which amplifies its last bits).
 * Whole solves: PGO's stop rule, a relative cost drop below 1e-9, cannot
@@ -16,6 +16,9 @@ Tolerances, and why:
   (6-dof, position) and rotations within 1e-4; the final cost within 1e-3
   relative (or 1e-6 absolute on a consistent graph); the chosen path.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -33,6 +36,7 @@ from voldor_tpu_torch.pgo import solver as tsol
 from test_pgo import _circle_graph, _rel_pose7
 
 CPU = torch.device("cpu")
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def _graph(n=30, seed=0, loops=((0, -1),), scale_noise=0.0):
@@ -104,19 +108,16 @@ def test_build_problem_and_jacobians_match_jax(dof7):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
 
 
-@pytest.mark.parametrize("solver", ["dense", "cg"])
+@pytest.mark.parametrize("solver", ["dense"])  # the port's one solver
 @pytest.mark.parametrize("dof7", [False, True])
 def test_first_lm_iterations_match_jax(solver, dof7):
     """The first iterations, while the cost is still far above float noise
-    (1e-4 of its start after 2 dense or 3 CG iterations)."""
+    (1e-4 of its start after 2 iterations)."""
     _, noisy, edges_idx, edges_pose, covar = _graph(20, seed=1, scale_noise=0.02 * dof7)
     pj, pt, info = _problems(noisy, edges_idx, edges_pose, covar, dof7)
-    jf = jsol.pgo_solve_dense_jit if solver == "dense" else jsol.pgo_solve_jit
-    tf = tsol.pgo_solve_dense_jit if solver == "dense" else tsol.pgo_solve_jit
-    k = 2 if solver == "dense" else 3
-    sj, cj, ij = jf(pj, max_iters=k)
-    st, ct, it = tf(pt, max_iters=k)
-    assert int(ij) == int(it) == k
+    sj, cj, ij = jsol.pgo_solve_dense_jit(pj, max_iters=2)
+    st, ct, it = tsol.pgo_solve_dense_jit(pt, max_iters=2)
+    assert int(ij) == int(it) == 2
     n = info["n_poses"]
     for f in ("p", "q", "s"):
         np.testing.assert_allclose(getattr(st, f).numpy(), np.asarray(getattr(sj, f))[:n],
@@ -142,21 +143,42 @@ def test_pgo_matches_jax(n, dof7, monkeypatch):
         np.testing.assert_allclose(out_t[:, 6], 0.0, atol=5e-3)
 
 
-def test_cg_matches_jax_and_dense():
-    _, noisy, edges_idx, edges_pose, covar = _graph(30, seed=4)
-    pj, pt, info = _problems(noisy, edges_idx, edges_pose, covar, False)
-    sj, cj, _ = jsol.pgo_solve_jit(pj)
-    st, ct, _ = tsol.pgo_solve_jit(pt)
-    sd, cd, _ = tsol.pgo_solve_dense_jit(pt)
-    n = info["n_poses"]
-    np.testing.assert_allclose(st.p.numpy(), np.asarray(sj.p)[:n], rtol=0, atol=2e-4)
-    np.testing.assert_allclose(np.abs(np.sum(st.q.numpy() * np.asarray(sj.q)[:n], -1)), 1.0,
-                               atol=1e-5)
-    np.testing.assert_allclose(float(ct), float(cj), rtol=1e-3, atol=1e-6)
-    # and the port's two solvers land on the same optimum (test_pgo.py's
-    # test_pgo_dense_matches_cg)
-    assert float(cd) <= float(ct) * 1.05 + 1e-6
-    np.testing.assert_allclose(sd.p.numpy(), st.p.numpy(), atol=2e-3)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("n", [30, 1025, 4541])
+def test_pgo_takes_dense_at_every_size(n, monkeypatch):
+    """pgo() in the SLAM's form (poses_idx given, so no chain reduction)
+    hands every graph to the dense LM, past 1024 poses and at KITTI 00's
+    4,541 frames too; the stub solves nothing."""
+    seen = []
+
+    def stub(prob, max_iters=100):
+        seen.append(prob.p.shape[0])
+        return prob, torch.zeros(()), torch.zeros((), dtype=torch.int32)
+
+    monkeypatch.setattr(tapi, "pgo_solve_dense_jit", stub)
+    noisy, edges_idx, edges_pose, covar = _chip_smoke().circle_graph(np, torch, n, seed=n)
+    out = tapi.pgo(noisy, edges_idx + 7, edges_pose, covar, poses_idx=np.arange(n) + 7,
+                   device="cpu")
+    assert seen == [n]
+    np.testing.assert_allclose(out[:, 3:], noisy[:, 3:], rtol=0, atol=1e-6)
+
+
+def test_dense_lm_past_the_old_cap():
+    """The dense LM on a drifted circle of 1,100 poses (chip_smoke.py's
+    graph, above 1024 poses): six iterations bring the cost from above 1e3
+    to below 1e-2."""
+    noisy, edges_idx, edges_pose, covar = _chip_smoke().circle_graph(np, torch, 1100, seed=7)
+    prob, _, info = tsol.build_problem(noisy, None, edges_idx, edges_pose, covar, False, CPU)
+    assert info == {"n_poses": 1100, "n_edges": 1101}
+    start = float(tsol._cost(prob))
+    _, cost, iters = tsol.pgo_solve_dense_jit(prob, max_iters=6)
+    assert int(iters) <= 6 and start > 1e3 and float(cost) < 1e-2
 
 
 @pytest.mark.parametrize("dof7", [False, True])

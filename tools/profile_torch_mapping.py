@@ -7,8 +7,8 @@ mapping work come from, on a CUDA device.
 Times falign_pairs on 4 and 16 keyframe pairs of the full-SLAM scene at
 the local-link settings (chip_smoke.py's falign_batch, with images; median
 of 3 calls after a warm one) and profiles one more call of each
-(torch.profiler), as well as four LM iterations of a 60-pose dense and CG
-PGO solve (chip_smoke.py's circle_graph): every cudaStreamSynchronize /
+(torch.profiler), as well as four LM iterations of a 60-pose dense PGO
+solve (chip_smoke.py's circle_graph): every cudaStreamSynchronize /
 cudaMemcpyAsync is attributed to the outermost aten op that encloses it on
 the same thread. Then counts the syncs of the batched linear-algebra calls
 the LM solvers use, at their shapes, against triangular solves. The two
@@ -66,8 +66,7 @@ def attribute(torch, fn):
 
 def linalg_counts(torch):
     """Syncs, copies and launches of the solvers' linear algebra at their
-    shapes: falign's (L, 18, 18) systems, PGO dense's (420, 420), CG's
-    block-Jacobi (60, 7, 7)."""
+    shapes: falign's (L, 18, 18) systems, PGO's dense (420, 420)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def spd(*shape):
@@ -91,11 +90,6 @@ def linalg_counts(torch):
             torch.cuda.synchronize()
             c, launches = attribute(torch, fn)
             rows.append((name, case, sum(c["sync"].values()), sum(c["copy"].values()), launches))
-    blk = spd(60, 7, 7)
-    torch.linalg.inv_ex(blk)
-    c, launches = attribute(torch, lambda: torch.linalg.inv_ex(blk))
-    rows.append(("pgo cg (60, 7, 7)", "inv_ex", sum(c["sync"].values()),
-                 sum(c["copy"].values()), launches))
     return rows
 
 
@@ -132,12 +126,10 @@ def main():
     g = cs.circle_graph(np, torch, 60, 60)
     prob, _, _ = pgo_solver.build_problem(g[0], None, g[1], g[2], g[3], False,
                                           torch.device("cuda"))
-    for name, solve in (("dense", pgo_solver.pgo_solve_dense_jit),
-                        ("cg", pgo_solver.pgo_solve_jit)):
-        solve(prob, max_iters=4)
-        c, launches = attribute(torch, lambda: solve(prob, max_iters=4))
-        print(f"[pgo {name} 60 poses, 4 LM iterations] launches {launches}; syncs by op "
-              f"{dict(c['sync'])}; copies by op {dict(c['copy'])}")
+    pgo_solver.pgo_solve_dense_jit(prob, max_iters=4)
+    c, launches = attribute(torch, lambda: pgo_solver.pgo_solve_dense_jit(prob, max_iters=4))
+    print(f"[pgo dense 60 poses, 4 LM iterations] launches {launches}; syncs by op "
+          f"{dict(c['sync'])}; copies by op {dict(c['copy'])}")
 
     for name, case, syncs, copies, launches in linalg_counts(torch):
         print(f"[linalg] {name} {case}: syncs {syncs}, copies {copies}, launches {launches}")

@@ -1,2 +1,2 @@
-"""7-DoF (Sim3-style) pose-graph optimisation: dense LM and LM + matrix-free
-CG (port of ``voldor_tpu/pgo``)."""
+"""7-DoF (Sim3-style) pose-graph optimisation: a dense LM (port of
+``voldor_tpu/pgo``)."""

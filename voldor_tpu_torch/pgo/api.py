@@ -9,15 +9,9 @@ import numpy as np
 
 from voldor_tpu_torch.ops import lie
 from voldor_tpu_torch.pgo.reduce import chain_reduce, redistribute_chain
-from voldor_tpu_torch.pgo.solver import build_problem, pgo_solve_dense_jit, pgo_solve_jit
+from voldor_tpu_torch.pgo.solver import build_problem, pgo_solve_dense_jit
 from voldor_tpu_torch.utils import profiling
 from voldor_tpu_torch.vo.engine import resolve_device
-
-# The dense Cholesky LM serves graphs up to this many poses, matrix-free CG
-# larger ones. It is the JAX package's choice (api.py:85): dense while its
-# pose count, padded to a power-of-two bucket of at least 64, has at most
-# 8192 tangent dims, i.e. up to 1024 poses.
-DENSE_MAX_POSES = 1024
 
 
 def pgo(
@@ -33,7 +27,9 @@ def pgo(
 ) -> np.ndarray:
     """reduce_threshold_dofs: tangent-dim count above which degree-2 chain
     vertices are marginalised before the solve (pgo/reduce.py; tests pass
-    0 to exercise it on small graphs). Where a trace record is open on the
+    0 to exercise it on small graphs). Every graph is solved by the dense
+    LM (``pgo_solve_dense_jit``): its normal matrix takes ~4 GB of device
+    memory at KITTI 00's 4,541 poses. Where a trace record is open on the
     thread (``utils/profiling.py``), ``pgo_iters`` counts the LM
     iterations."""
     dev = resolve_device(device)
@@ -69,8 +65,7 @@ def pgo(
     if info["n_edges"] == 0:
         return poses.copy()
 
-    solve = pgo_solve_dense_jit if info["n_poses"] <= DENSE_MAX_POSES else pgo_solve_jit
-    solved, cost, iters = solve(prob)
+    solved, cost, iters = pgo_solve_dense_jit(prob)
     if debug:
         print(f"PGO cost {float(cost):.6f} after {int(iters)} LM iterations")
 
