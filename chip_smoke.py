@@ -224,25 +224,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    5-flow windows under the gate; save_result of one window engine with
    --save_everything --kitti_estimate_ground 1 (the file set, depth.npy
    equal to the engine's depth, a finite ground estimate), and a
-   VOLDOR_SLAM pass over 15 flows with debug_dir (every window's files);
-19. the multi-card solve: first both kernels launched band by band (2 and
-   4 row bands on the card: fb_smooth_bands, and cost_map_score_bands /
-   cost_map_accept_bands over phase 5's three proposal batches) against
-   their whole-map plain versions with phases 3-5's limits; then one
-   5-flow window of the bench scene (613x185, CONFIG, started from the
-   engine's bootstrap) through parallel.mesh.multichip_solve on a mesh of
-   1 and on virtual meshes on the card (sp = 2, sp = 4, sp x hyp = 2 x 2;
-   the same meshes on real cards where more than one exists): per mesh the
-   wall seconds of a warm run, the launches of each kernel in total and per
-   sp band (every band must launch both), the host syncs
-   (set_sync_debug_mode's warnings), the Sim3 ATE under the gate, and the
-   differences from the mesh of 1 (max relative and the share within atol
-   2e-5 of poses6, covars, depth, rigidness), held to the JAX package's
-   limits (MESH_POSE_ATOL, MESH_DEPTH_Q99).
+   VOLDOR_SLAM pass over 15 flows with debug_dir (every window's files).
 
-The kernels' launch counts sum the main-path phases (7, 10, 11, 15, 16, 17,
-18 and 19; phase 16's child process prints its own counts); the record
-also gives phases 7-18's sum and phase 19's apart. Every VO phase must
+The kernels' launch counts sum the main-path phases (7, 10, 11, 15, 16, 17
+and 18; phase 16's child process prints its own counts). Every VO phase must
 launch each of the pose sweep's three kernels (check_pose_counts). The falign kernels run
 on the mapping half only: their launches are those of phases 15 and 16
 (the full pass's checked pass and the CLI's child), by path in the record.
@@ -3712,198 +3697,6 @@ def phase_cli(np, torch):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# phase 19: the limits the JAX package holds its sharded solve to at the
-# KITTI shape (tests/test_multichip.py:183-191): poses within atol 5e-3 of
-# one device, the 99th percentile of the depth's relative difference
-# (denominator max(|depth|, 1e-3)) below 0.05; and the share of pixels
-# within atol 2e-5 of the mesh of one, printed (test_multichip.py:63-65)
-MESH_POSE_ATOL = 5e-3
-MESH_DEPTH_Q99 = 0.05
-MESH_MAP_ATOL = 2e-5
-
-
-@contextlib.contextmanager
-def counting_syncs(torch, box):
-    """Count the host syncs of the enclosed calls (set_sync_debug_mode's
-    warnings); the count is appended to box."""
-    import warnings
-
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    box.append(sum("synchroniz" in str(w.message) for w in rec))
-
-
-def band_checks(np, torch, bi):
-    """The kernels launched band by band (2 and 4 virtual bands on the
-    card) against their whole-map plain versions, with phases 3-5's
-    limits. Returns the largest errors."""
-    from voldor_tpu_torch.ops import cost as cost_mod
-    from voldor_tpu_torch.ops import fb_smooth as fb
-
-    p, Rs, ts = bi["p"], bi["Rs"], bi["ts"]
-    rig, track, tinb, ps = planes_at(bi, WINDOW, 0)
-    planes = (track, tinb, rig, Rs, ts, WINDOW, p)
-    jit = 1.0 + 0.1 * (torch.rand((H, W), generator=bi["gen"], device="cuda") - 0.5)
-    depth = (bi["d0"] * jit).contiguous()
-    fb_ref = fb.fb_smooth_reference(rig, FB_EMM, FB_NCP)
-    fb_whole = fb.fb_smooth(rig, FB_EMM, FB_NCP)
-    cands = bi["cands_all"]
-    score_ref = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(cands, *planes))
-    cost0 = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(depth[None], *planes))[0]
-    errs = dict(fb=0.0, score=0.0, accept_same=1.0)
-    for n in (2, 4):
-        devs = ["cuda:0"] * n
-        got = fb.fb_smooth_bands(rig, FB_EMM, FB_NCP, devs)
-        bands = cost_mod.split_bands(devs, track, tinb, rig, Rs, ts)
-        score = cost_mod.cost_map_score_bands(cands, bands, WINDOW, p)
-        torch.cuda.synchronize()
-        e_fb = float(torch.abs(got - fb_ref).max())
-        fin = torch.isfinite(score_ref)
-        same_inf = torch.equal(fin, torch.isfinite(score))
-        bad = int((~close(score, score_ref)).sum())
-        e_sc = float(torch.abs(score[fin] - score_ref[fin]).max())
-        line = (f"[multichip] {n} bands: fb_smooth_bands vs fb_smooth_reference max abs err "
-                f"{e_fb:.3e} (bitwise equal to the whole-map kernel "
-                f"{bool(torch.equal(got, fb_whole))}); cost score vs plain max abs err {e_sc:.3e}, "
-                f"out-of-tol {bad}, +inf pattern identical {same_inf}")
-        if not e_fb <= ATOL or bad or not same_inf:
-            raise AssertionError(f"band-wise kernels disagree with their plain versions: {line}")
-        errs["fb"], errs["score"] = max(errs["fb"], e_fb), max(errs["score"], e_sc)
-        for name, kc, masks in accept_batches(torch, bi, depth):
-            costs = cost_mod.normalize_cost(*cost_mod.cost_map_tracked_reference(kc, *planes))
-            d_ref, c_ref = cost_mod.accept_reference(depth, cost0, costs, kc, masks)
-            d_b, c_b = cost_mod.cost_map_accept_bands(depth.clone(), cost0.clone(), kc, masks, bands,
-                                                      WINDOW, p)
-            torch.cuda.synchronize()
-            same = d_b == d_ref
-            frac = float(same.float().mean())
-            bad_c = int((~close(c_b[same], c_ref[same])).sum())
-            line += f"; accept {name}: same depth at {frac:.6f}, cost out-of-tol {bad_c}"
-            errs["accept_same"] = min(errs["accept_same"], frac)
-            if frac < 0.999 or bad_c:
-                raise AssertionError(f"band-wise accept disagrees with the plain one: {line}")
-        log(line)
-    return errs
-
-
-def window_ate(np, torch, poses6, Ts):
-    """Sim3 ATE of a window's N relative poses against the scene's first
-    N + 1 cameras, and the gate 0.02 x extent."""
-    from voldor_tpu_torch.ops.lie import pose6_to_T44
-    from voldor_tpu_torch.utils.evaluation import ate_rmse
-
-    Tc = pose6_to_T44(poses6.detach().cpu()).numpy().astype(np.float64)
-    Twc, est = np.eye(4), [np.eye(4)]
-    for T in Tc:
-        Twc = T @ Twc
-        est.append(np.linalg.inv(Twc))
-    gt = np.linalg.inv(Ts[:len(est)])
-    extent = float(np.linalg.norm(gt[:, :3, 3] - gt[0, :3, 3], axis=1).max())
-    return ate_rmse(np.stack(est), gt, with_scale=True), 0.02 * extent
-
-
-def phase_multichip(np, torch, scene, bi):
-    """The multi-card solve at full width (phase 19 in the module
-    docstring). Returns the summed launch counts of its meshes' runs."""
-    from voldor_tpu_torch.config import VoldorConfig
-    from voldor_tpu_torch.ops import cost as cost_mod
-    from voldor_tpu_torch.ops import fb_smooth as fb
-    from voldor_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d, multichip_solve
-    from voldor_tpu_torch.vo.engine import VoldorEngine
-
-    t_phase = time.perf_counter()
-    band_errs = band_checks(np, torch, bi)
-    _, _, _, flows, _, Ts, _ = scene
-    fl = flows[:WINDOW]
-    cfg = VoldorConfig(fx=FX, fy=FY, cx=W / 2, cy=H / 2, basefocal=BASEFOCAL)
-    cfg.read_config(CONFIG)
-    # the window's start as the engine makes it (multichip_solve, like the
-    # JAX package's, starts from a given depth and poses)
-    eng = VoldorEngine(cfg, device="cuda").init(fl)
-    eng.bootstrap()
-    depth0, poses0 = eng.depth.clone(), eng.poses6.clone()
-    cal = []  # the sync-debug warnings of one .item()
-    x = torch.ones(1, device="cuda")
-    with counting_syncs(torch, cal):
-        x.item()
-    v = ["cuda:0"]
-    meshes = [("1", make_mesh(1)), ("sp2", make_mesh(2, devices=v * 2)),
-              ("sp4", make_mesh(4, devices=v * 4)),
-              ("sp2xhyp2", make_mesh_2d(2, 2, devices=v * 4))]
-    n_cards = torch.cuda.device_count()
-    if n_cards >= 2:
-        meshes.append(("real sp2", make_mesh(2)))
-    if n_cards >= 4:
-        meshes += [("real sp4", make_mesh(4)), ("real sp2xhyp2", make_mesh_2d(2, 2))]
-    log(f"[multichip] real multi-card: {n_cards} card{'s' if n_cards > 1 else ''}; host syncs "
-        f"are counted as set_sync_debug_mode('warn')'s warnings, {cal[0]} for one .item()")
-    if cal[0] < 1:
-        raise AssertionError("the sync-debug mode gave no warning for a .item()")
-    total = dict(cost=0, score=0, fb=0, ct=0, p4p=0, meanshift=0, rg=0)
-    ref, recs = None, {}
-    for name, mesh in meshes:
-        multichip_solve(mesh, cfg, fl, depth0, poses0)  # warm: allocator, cuBLAS handles
-        reset_counts()
-        cost_mod.band_launches.clear()
-        fb.band_launches.clear()
-        syncs = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with counting_syncs(torch, syncs):
-            st = multichip_solve(mesh, cfg, fl, depth0, poses0)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        for k in total:
-            total[k] += counts[k]
-        n_sp = mesh.shape.get("sp", 1)
-        per_band = dict(cost=[cost_mod.band_launches[i] for i in range(n_sp)],
-                        fb=[fb.band_launches[i] for i in range(n_sp)])
-        ate, gate = window_ate(np, torch, st["poses6"], Ts)
-        rec = dict(wall_s=wall, iters=st["iters_cur"], n_flows=st["n_flows"],
-                   launches=counts, launches_per_band=per_band,
-                   host_sync_warnings=syncs[0], ate=ate, gate=gate)
-        if ref is None:
-            ref = st
-        else:
-            for k in ("poses6", "covars", "depth", "rigidness"):
-                a, b = st[k].double(), ref[k].double()
-                rel = torch.abs(a - b) / torch.clamp_min(torch.abs(b), 1e-3)
-                rec[k] = dict(max_rel=float(rel.max()),
-                              within_atol=float((torch.abs(a - b) <= MESH_MAP_ATOL).double().mean()))
-            rec["poses6_max_abs"] = float(torch.abs(st["poses6"] - ref["poses6"]).max())
-            rel_d = torch.abs(st["depth"].double() - ref["depth"].double()) / torch.clamp_min(
-                torch.abs(ref["depth"].double()), 1e-3)
-            rec["depth_rel_q99"] = float(torch.quantile(rel_d.flatten(), 0.99))
-        recs[name] = rec
-        log(f"[multichip] mesh {name} {mesh.shape}: {json.dumps(rec)}")
-        if not ate < gate:
-            raise AssertionError(f"mesh {name}: the window fails the Sim3-ATE gate")
-        if not all(torch.isfinite(st[k]).all() for k in ("poses6", "depth", "rigidness")):
-            raise AssertionError(f"mesh {name}: non-finite output")
-        if counts["cost"] < 1 or counts["fb"] < 1:
-            raise AssertionError(f"mesh {name}: a kernel was never launched: {counts}")
-        check_pose_counts(f"mesh {name}", counts)
-        if n_sp > 1 and not (all(per_band["cost"]) and all(per_band["fb"])):
-            raise AssertionError(f"mesh {name}: a band launched no kernel: {per_band}")
-        if ref is not st and not (rec["poses6_max_abs"] <= MESH_POSE_ATOL
-                                  and rec["depth_rel_q99"] < MESH_DEPTH_Q99):
-            raise AssertionError(f"mesh {name}: differs from the mesh of one beyond the limits")
-    dt = time.perf_counter() - t_phase
-    pose_way = ("P4P: one kernel launch per device of the hyp axis on its slice of the hypotheses; "
-                "meanshift and the robust Gaussian: the pool gathered to the mesh's first device "
-                "and one kernel launch there (a mesh of one's arithmetic)")
-    log(f"[multichip] phase {dt:.1f} s; launches over the meshes' runs {total}; the pose kernels "
-        f"under a mesh: {pose_way}")
-    return total, dict(band_errs=band_errs, meshes=recs, phase_s=dt, cards=n_cards,
-                       pose_kernels_under_mesh=pose_way)
-
-
 # the JAX package's golden oracle (tests/test_parity.py:45-49) and the clean
 # limits it holds the shipped fast path to there (tests/test_parity.py:150-160)
 REFERENCE_EXACT = (
@@ -4074,7 +3867,7 @@ def phase_reference_exact(np, torch, scene, gt):
     return counts, rec
 
 
-def pose_records(rec, err, ab, paths, path_names, multi):
+def pose_records(rec, err, ab, paths, path_names):
     """The kernels-line records of the pose sweep's three kernels: the
     Jacobi sweep's shape (B = 5) in the required keys, B = 1 beside it."""
     meta = (("p4p", "p4p", "p4p_kernel.cu", "voldor_tpu/ops/p3p.py:300", "p4p_max_err"),
@@ -4088,9 +3881,8 @@ def pose_records(rec, err, ab, paths, path_names, multi):
         entry = {
             "name": name, "route": "cuda", "source": f"voldor_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": sum(c[key] for c in paths) + multi[key],
+            "launches": sum(c[key] for c in paths),
             "launches_by_path": {n: c[key] for n, c in zip(path_names, paths)},
-            "launches_multichip": multi[key],
             "max_abs_err": err[err_key],
             "ms": r5["ms"], "plain_ms": r5["plain_ms"], "bound_ms": r5["bound_ms"],
             "bound_us": r5["bound_ms"] * 1e3, "bound_by": r5["bound_by"], "library_ms": None,
@@ -4275,7 +4067,6 @@ def main():
     paths = (win_counts, mono, stereo, full, cli, mscaled, refexact)
     path_names = ("windows", "slam-mono", "slam-stereo", "slam-full-mono", "cli", "mono-scaled",
                   "refexact")
-    multi, multi_rec = phase_multichip(np, torch, scene, bi)
 
     log(f"[run] {time.perf_counter() - t_run:.1f} s from the device check to here")
     log(f"[device] {smi}")
@@ -4285,10 +4076,7 @@ def main():
             "route": "cuda",
             "source": "voldor_tpu_torch/csrc/fb_smooth_kernel.cu",
             "replaces": "voldor_tpu/ops/fb_smooth.py:134",
-            "launches": sum(c["fb"] for c in paths) + multi["fb"],
-            "launches_phases_7_to_18": sum(c["fb"] for c in paths),
-            "launches_multichip": multi["fb"],
-            "band_max_abs_err": multi_rec["band_errs"]["fb"],
+            "launches": sum(c["fb"] for c in paths),
             "max_abs_err": fb_err,
             "ms": fb_rec["ms"],
             "plain_ms": fb_rec["plain_ms"],
@@ -4310,12 +4098,8 @@ def main():
             "route": "cuda",
             "source": "voldor_tpu_torch/csrc/cost_kernel.cu",
             "replaces": "voldor_tpu/ops/pallas_cost.py:33",
-            "launches": sum(c["cost"] for c in paths) + multi["cost"],
-            "launches_phases_7_to_18": sum(c["cost"] for c in paths),
-            "launches_multichip": multi["cost"],
-            "score_launches": sum(c["score"] for c in paths) + multi["score"],
-            "band_max_abs_err": multi_rec["band_errs"]["score"],
-            "band_accept_agreement": multi_rec["band_errs"]["accept_same"],
+            "launches": sum(c["cost"] for c in paths),
+            "score_launches": sum(c["score"] for c in paths),
             "max_abs_err": score_err,
             "accept_agreement": accept_frac,
             "ms": cost_rec["ms"],
@@ -4394,16 +4178,15 @@ def main():
                 "chunk", "plain_ms", "lm_bound_ms", "lm_bound_by", "chain_floor_us",
                 "chain_floor_by_cluster_us", "cholesky_ms")},
         },
-        *pose_records(pose_rec, pose_err, pose_ab, paths, path_names, multi),
+        *pose_records(pose_rec, pose_err, pose_ab, paths, path_names),
         {
             "name": "chain_trace",
             "route": "cuda",
             "source": "voldor_tpu_torch/csrc/chain_trace.cu",
             "replaces": "voldor_tpu_torch/ops/chain_trace.py:chain_trace_reference "
                         "(voldor_tpu/vo/em.py:95, :325, :332)",
-            "launches": sum(c["ct"] for c in paths) + multi["ct"],
+            "launches": sum(c["ct"] for c in paths),
             "launches_by_path": {n: c["ct"] for n, c in zip(path_names, paths)},
-            "launches_multichip": multi["ct"],
             "max_abs_err": chain_err,
             "rigidness_bitwise_share": chain_bitwise,
             "library_ms": None,

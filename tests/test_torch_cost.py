@@ -11,8 +11,8 @@ The plain accept, ``accept_reference``, is held bitwise to the accept of
 ``em.optimize_depth_batched`` on scripted costs (ties, masks, all-+inf
 pixels, NaNs). The kernel itself runs only on a CUDA device (tests marked
 ``gpu``: K = 1, 4, 10, 16 at N = 1, 5, 8 and D = 0, 2, 4, windows cut
-short, a row band with y0 > 0 and widths no multiple of the kernel's tile,
-masks none or partial, repeats bitwise equal).
+short and widths no multiple of the kernel's tile, masks none or partial,
+repeats bitwise equal).
 
 The JAX side runs op by op (``jax.disable_jit``): compiled, XLA on the CPU
 contracts ``a*b + c`` into fused multiply-adds and divides by constants
@@ -270,13 +270,12 @@ def test_accept_reference_semantics():
     assert d[0, 1] == 2.0  # unmasked, the tie 0.1 goes to the lower k
 
 
-def _gpu_case(K, N, active_n, D, h=32, w=128, y0=0):
+def _gpu_case(K, N, active_n, D, h=32, w=128):
     """Planes of an N-frame window with D priors (up to 4: _case's two,
     the frame-0 depth x 0.97 at the identity pose and the frame-1 depth x
-    1.01 at pose 0) and K candidates, on the card; with y0 > 0 the rows
-    from y0 on, a band whose first image row is y0. Returns (whole-image
-    planes, band planes, band candidates, the band's frame-0 depth), each
-    plane set (track, inb, rig, Rs, ts, active_n, p) and its prior samples."""
+    1.01 at pose 0) and K candidates, on the card. Returns (planes, prior
+    samples, candidates, a start depth of 1.3 x frame 0's), the planes as
+    (track, inb, rig, Rs, ts, active_n, p)."""
     c = _case(h, w, N)
     c["priors"] = np.concatenate([c["priors"], c["depth0"][None] * 0.97, c["priors"][1:2] * 1.01])
     c["dp_Rs"] = np.concatenate([c["dp_Rs"], np.eye(3, dtype=np.float32)[None], c["dp_Rs"][1:2]])
@@ -292,25 +291,17 @@ def _gpu_case(K, N, active_n, D, h=32, w=128, y0=0):
     p = em_params_from_numpy(c["p"])
     scale = 1.0 + 0.04 * (np.arange(K, dtype=np.float32) - K / 2)
     cands = torch.as_tensor(c["depth0"][None] * scale[:, None, None], device=dev)
-    whole = ((ttrack, ttinb, trig, tRs, tts, active_n, p), tps)
-
-    def rows(x):
-        return x[:, y0:].contiguous()
-
-    band_ps = None if tps is None else (rows(tps[0]), rows(tps[1]), tps[2], tps[3])
-    band = ((tuple(rows(t) for t in ttrack), rows(ttinb), rows(trig), tRs, tts, active_n, p), band_ps)
-    depth0 = torch.as_tensor(c["depth0"][y0:] * 1.3, device=dev).contiguous()
-    return whole, band, cands, rows(cands), depth0
+    depth0 = torch.as_tensor(c["depth0"] * 1.3, device=dev)
+    return (ttrack, ttinb, trig, tRs, tts, active_n, p), tps, cands, depth0
 
 
-# (K, N, active_n, D, h, w, y0): every K at N = 1, 5, 8 and D = 0, 2, 4,
-# windows cut short (active_n < N), a band with y0 > 0, and widths that are
-# no multiple of the tile (h * w of 29 x 37 or 29 x 128)
+# (K, N, active_n, D, h, w): every K at N = 1, 5, 8 and D = 0, 2, 4,
+# windows cut short (active_n < N), and widths that are no multiple of the
+# tile (h * w of 29 x 37 or 29 x 128)
 GPU_CASES = (
-    [(K, N, N, D, 32, 128, 0) for K in (1, 4, 10, 16) for N in (1, 5, 8) for D in (0, 2, 4)]
-    + [(4, 8, 5, 2, 32, 128, 0), (10, 5, 3, 4, 32, 128, 0), (16, 8, 6, 0, 32, 128, 0)]
-    + [(K, 5, 5, 2, 32, 128, 11) for K in (1, 10, 16)]
-    + [(K, 5, 4, 2, 29, 37, 0) for K in (1, 4, 10, 16)] + [(10, 8, 8, 4, 29, 128, 5)]
+    [(K, N, N, D, 32, 128) for K in (1, 4, 10, 16) for N in (1, 5, 8) for D in (0, 2, 4)]
+    + [(4, 8, 5, 2, 32, 128), (10, 5, 3, 4, 32, 128), (16, 8, 6, 0, 32, 128)]
+    + [(K, 5, 4, 2, 29, 37) for K in (1, 4, 10, 16)] + [(10, 8, 8, 4, 29, 128)]
 )
 
 
@@ -320,37 +311,36 @@ def _needs_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,N,active_n,D,h,w,y0", GPU_CASES)
-def test_cost_kernel_matches_plain_on_gpu(K, N, active_n, D, h, w, y0):
+@pytest.mark.parametrize("K,N,active_n,D,h,w", GPU_CASES)
+def test_cost_kernel_matches_plain_on_gpu(K, N, active_n, D, h, w):
     _needs_card()
-    (planes, ps), (bplanes, bps), cands, bcands, _ = _gpu_case(K, N, active_n, D, h, w, y0)
+    planes, ps, cands, _ = _gpu_case(K, N, active_n, D, h, w)
     before = tcost.cost_kernel_launches
-    got = tcost.cost_map_score(bcands, *bplanes, prior_samples=bps, y0=y0)
-    again = tcost.cost_map_score(bcands, *bplanes, prior_samples=bps, y0=y0)
+    got = tcost.cost_map_score(cands, *planes, prior_samples=ps)
+    again = tcost.cost_map_score(cands, *planes, prior_samples=ps)
     assert tcost.cost_kernel_launches == before + 2
     assert torch.equal(got, again)  # repeats are bitwise equal
-    # the band's rows of the whole image's plain costs
     ref = tcost.normalize_cost(*tcost.cost_map_tracked_reference(cands, *planes, prior_samples=ps))
-    _assert_cost_equal(got.cpu(), ref[:, y0:].cpu())
+    _assert_cost_equal(got.cpu(), ref.cpu())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("K,N,active_n,D,h,w,y0", GPU_CASES[::3] + GPU_CASES[-9:])
-def test_cost_kernel_accept_matches_plain_on_gpu(K, N, active_n, D, h, w, y0, masked):
+@pytest.mark.parametrize("K,N,active_n,D,h,w", GPU_CASES[::3] + GPU_CASES[-6:])
+def test_cost_kernel_accept_matches_plain_on_gpu(K, N, active_n, D, h, w, masked):
     _needs_card()
-    _, (planes, ps), _, cands, depth = _gpu_case(K, N, active_n, D, h, w, y0)
+    planes, ps, cands, depth = _gpu_case(K, N, active_n, D, h, w)
     masks = None
     if masked:
         masks = torch.ones(cands.shape, dtype=torch.bool, device=cands.device)
         masks[0, :, ::3] = False
         masks[K // 2, ::2] = False
-    cost = tcost.cost_map_score(depth[None].contiguous(), *planes, prior_samples=ps, y0=y0)[0]
+    cost = tcost.cost_map_score(depth[None].contiguous(), *planes, prior_samples=ps)[0]
     costs = tcost.normalize_cost(*tcost.cost_map_tracked_reference(
-        cands, *planes, prior_samples=ps, y0=y0))
+        cands, *planes, prior_samples=ps))
     d_ref, c_ref = tcost.accept_reference(depth, cost, costs, cands, masks)
     d, k = tcost.cost_map_accept(depth.clone(), cost.clone(), cands, masks, *planes,
-                                 prior_samples=ps, y0=y0)
+                                 prior_samples=ps)
     same = d == d_ref
     assert same.float().mean().item() >= 0.999
     # the written cost: the plain one where the depths agree, and everywhere
@@ -364,7 +354,7 @@ def test_cost_kernel_accept_matches_plain_on_gpu(K, N, active_n, D, h, w, y0, ma
     pick = torch.where(took, torch.gather(costs, 0, torch.argmax(hit.to(torch.uint8), 0)[None])[0], cost)
     assert _close(k, pick).all() and _close(pick, c_ref).all()
     d2, k2 = tcost.cost_map_accept(depth.clone(), cost.clone(), cands, masks, *planes,
-                                   prior_samples=ps, y0=y0)
+                                   prior_samples=ps)
     assert torch.equal(d, d2) and torch.equal(k, k2)
 
 

@@ -36,7 +36,9 @@ def _stack(shape, seed=3):
     return prob
 
 
-SHAPES = [(1, 9, 13), (3, 7, 11), (5, 12, 17), (2, 9, 1), (1, 1, 21)]
+# (3, 29, 40): 40-wide lines do not divide into 32 chunks; (1, 9, 5): lines
+# shorter than a chunk
+SHAPES = [(1, 9, 13), (3, 7, 11), (5, 12, 17), (2, 9, 1), (1, 1, 21), (3, 29, 40), (1, 9, 5)]
 # the kernel's odd shapes: lines shorter than a chunk, or not a multiple of it
 GPU_SHAPES = [(m, 37, 61) for m in (1, 2, 3, 5)] + [(2, 1, 61), (2, 37, 1), (1, 1, 1), (3, 185, 613)]
 

@@ -181,8 +181,7 @@ def test_port_imports_no_jax():
         "voldor_tpu_torch.slam.loop_closure, voldor_tpu_torch.slam.checkpoint, "
         "voldor_tpu_torch.slam.viewer, voldor_tpu_torch.slam.huber, voldor_tpu_torch.demo, "
         "voldor_tpu_torch.ops.ap3p, voldor_tpu_torch.vo.kitti_ground, "
-        "voldor_tpu_torch.utils.debug_viz, voldor_tpu_torch.parallel.hints, "
-        "voldor_tpu_torch.parallel.mesh, voldor_tpu_torch.native.io, "
+        "voldor_tpu_torch.utils.debug_viz, voldor_tpu_torch.native.io, "
         "voldor_tpu_torch.slam.gl_viewer, voldor_tpu_torch.utils.profiling, "
         "voldor_tpu_torch.utils.artifacts, voldor_tpu_torch.ops.p3p, "
         "voldor_tpu_torch.ops.meanshift, voldor_tpu_torch.ops.robust_gaussian, "

@@ -13,9 +13,6 @@
 //   the lowest k, a NaN among the kept costs wins), and where that cost is
 //   below the pixel's current cost writes the candidate's depth and cost
 //   over the current ones, in place. Nothing else is written.
-// The planes may be a band of the image's rows, y0 the image row of their
-// first row (the multi-card solve launches one per band,
-// parallel/mesh.py); the whole image is the band at y0 = 0.
 //
 // What bounds it on the card: the arithmetic. Per pixel the accept reads
 // K candidates, depth and cost, 6 planes per active window frame (track
@@ -28,7 +25,7 @@
 // are far longer than that count, so the instruction stream and how well
 // the SMs issue it decide the time.
 //
-// Design: a block takes a tile of `tile` consecutive pixels of the band
+// Design: a block takes a tile of `tile` consecutive pixels of the image
 // (a multiple of 32) and all K candidates: k * tile + j is the thread of
 // candidate k at pixel j, so warp w takes one candidate over 32
 // consecutive pixels and candidate loads and score stores stay coalesced.
@@ -80,7 +77,6 @@ struct CostParams {
   int n_priors;  // D
   int k;         // candidates
   int h, w;
-  int y0;        // image row of the planes' first row (a row band's offset)
   int tile;      // pixels per block, a multiple of 32 (ops/cost.py:geometry)
 };
 
@@ -153,13 +149,13 @@ __device__ __forceinline__ void flow_term(const float* P, float& ox, float& oy, 
 }
 
 // One prior term (em.prior_cost_sums, fisk.depth_rigidness): the frame-0
-// point (px0, py0, pz0) in prior camera P against the prior's disparity; wd =
+// point (p0x, p0y, p0z) in prior camera P against the prior's disparity; wd =
 // (weight, disparity), 0 weight where the prior has no target.
-__device__ __forceinline__ void prior_term(const float* P, float px0, float py0, float pz0,
+__device__ __forceinline__ void prior_term(const float* P, float p0x, float p0y, float p0z,
                                            float2 wd, float2 model, float p_out,
                                            const CostParams& prm, float& pcost, float& pwsum) {
   if (!(wd.x > 0.0f)) return;
-  const float nz = P[6] * px0 + P[7] * py0 + P[8] * pz0 + P[11];
+  const float nz = P[6] * p0x + P[7] * p0y + P[8] * p0z + P[11];
   if (!(nz > 0.0f)) return;
   const float disp1 = (prm.bf / fmaxf(nz, 1e-12f)) / prm.arf;
   const float p_in = fisk_pdf(fabsf(disp1 - wd.y), model.x, model.y);
@@ -282,9 +278,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) cost_kernel(const CostInputs i
     const int x = pix - y * prm.w;
     // backprojection (em._backproject)
     const float bx = ((float)x - prm.cx) / prm.fx;
-    const float by = ((float)(y + prm.y0) - prm.cy) / prm.fy;
-    const float px0 = bx * d, py0 = by * d;
-    float ox = px0, oy = py0, oz = d;
+    const float by = ((float)y - prm.cy) / prm.fy;
+    const float p0x = bx * d, p0y = by * d;
+    float ox = p0x, oy = p0y, oz = d;
     for (int f = 0; f < n_use; ++f) {
       const int o = f * P + j;
       flow_term(sposes + f * 12, ox, oy, oz, s.track[o], s.obs[o], s.model[o], s.pout_rig[o],
@@ -294,7 +290,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) cost_kernel(const CostInputs i
       float pcost = 0.0f, pwsum = 0.0f;
       for (int dd = 0; dd < D; ++dd) {
         const int o = dd * P + j;
-        prior_term(sposes + (N + dd) * 12, px0, py0, d, s.prior_wd[o], s.prior_model[o],
+        prior_term(sposes + (N + dd) * 12, p0x, p0y, d, s.prior_wd[o], s.prior_model[o],
                    s.prior_pout[o], prm, pcost, pwsum);
       }
       cost = cost + pcost;
@@ -406,7 +402,7 @@ extern "C" int cost_kernel_launch(int mode, const float* poses, const float* can
   Launch g;
   if (mode < 0 || mode > 1 || prm->k < 1 || prm->k > COST_MAX_K ||
       prm->n_frames < 1 || prm->n_frames > COST_MAX_N || prm->n_priors < 0 ||
-      prm->n_priors > COST_MAX_D || prm->h < 1 || prm->w < 1 || prm->y0 < 0 ||
+      prm->n_priors > COST_MAX_D || prm->h < 1 || prm->w < 1 ||
       (long long)prm->h * prm->w * COST_MAX_K > 0x7fffffffLL || !geometry(*prm, &g)) {
     return (int)cudaErrorInvalidValue;
   }

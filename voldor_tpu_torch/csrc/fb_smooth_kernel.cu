@@ -354,20 +354,6 @@ extern "C" int fb_smooth_launch(const float* in, float* mid, float* out, int m, 
   return (int)launch_cols(mid, out, m, h, w, hmm, s);
 }
 
-// One pass of fb_smooth_launch on its own, for a band of the map (the
-// multi-card solve, parallel/mesh.py): pass 0 smooths the rows of the
-// (m, h, w) stack `in` into `out`, pass 1 its columns. The row pass of a
-// band of rows, and the column pass of a band of columns, each equal that
-// band of the whole pass. Same contract as fb_smooth_launch otherwise.
-extern "C" int fb_smooth_pass_launch(const float* in, float* out, int m, int h, int w, int pass,
-                                     const float* consts, void* stream) {
-  if (m < 1 || h < 1 || w < 1 || pass < 0 || pass > 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const Hmm hmm = make_hmm(consts);
-  if (pass == 0) return (int)launch_rows(in, out, m * h, w, hmm, s);
-  return (int)launch_cols(in, out, m, h, w, hmm, s);
-}
-
 // fb_chain_probe_kernel (which = 0) or fb_combine_probe_kernel (which = 1)
 // on one thread: e (2 floats) in, out (1 float); both device pointers;
 // consts as for fb_smooth_launch. Returns a cudaError_t as int; does not

@@ -10,10 +10,6 @@ accept of ``voldor_tpu/vo/em.py:optimize_depth_batched`` (:596-610).
 * ``cost_map_score`` — the normalised (K, h, w) cost of K candidates.
 * ``cost_map_accept`` — scores a proposal batch and accepts, per pixel, the
   first argmin over the kept candidates where it lowers the current cost.
-* ``split_bands`` / ``cost_map_score_bands`` / ``cost_map_accept_bands`` —
-  the engine's launches, one per row band on the band's device (each band
-  a contiguous copy of its rows, ``y0`` its first image row). Without a
-  mesh there is one band: views of the whole maps, launched in place.
 
 For CUDA tensors both launch the kernel (each launch counted in
 ``cost_kernel_launches``, the score-mode ones also in
@@ -42,7 +38,6 @@ from typing import NamedTuple
 import torch
 
 from voldor_tpu_torch.ops import _build, fisk
-from voldor_tpu_torch.parallel import hints
 
 MAX_N = 8  # window frames the kernel takes (COST_MAX_N)
 MAX_D = 4  # depth priors (COST_MAX_D)
@@ -66,7 +61,7 @@ class _CostParams(ctypes.Structure):
         ("bf", ctypes.c_float), ("omega", ctypes.c_float),
         ("n_frames", ctypes.c_int), ("active_n", ctypes.c_int),
         ("n_priors", ctypes.c_int), ("k", ctypes.c_int),
-        ("h", ctypes.c_int), ("w", ctypes.c_int), ("y0", ctypes.c_int),
+        ("h", ctypes.c_int), ("w", ctypes.c_int),
         ("tile", ctypes.c_int),
     ]
 
@@ -81,7 +76,7 @@ MAX_THREADS = 768  # the kernel's launch bounds (two such blocks an SM: 40 regis
 
 
 class Geometry(NamedTuple):
-    """One launch: a block takes ``tile`` consecutive pixels of the band and
+    """One launch: a block takes ``tile`` consecutive pixels of the map and
     all K candidates (thread k * tile + j: candidate k at pixel j)."""
 
     tile: int  # pixels a block, a multiple of 32
@@ -92,7 +87,7 @@ class Geometry(NamedTuple):
 
 def geometry(K: int, N: int, D: int, h: int, w: int) -> Geometry:
     """The kernel's launch geometry for K candidates, N window frames and D
-    priors over an h x w band: 128 pixels a block at K = 1, else 32 (a
+    priors over an h x w map: 128 pixels a block at K = 1, else 32 (a
     warp a candidate), the fastest of 32-256 on an H100 (PERF.md). Shared
     memory a block: per pixel and frame the staged planes and the Fisk
     model (4 float pairs and the in-bounds byte), per pixel and prior 5
@@ -121,17 +116,16 @@ def _prior_stack(prior_samples):
 
 
 def cost_map_tracked_reference(
-    cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples=None, y0=0
+    cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples=None
 ):
     """Plain PyTorch version: raw (cost_sum, weight_sum), each (K, h, w).
 
     track = (tx, ty, obx, oby), each (N, h, w), or None for a prior-only
     cost; prior_samples = (target (D,h,w), weight (D,h,w), dp_Rs, dp_ts) or
-    None. The planes may be a band of the image's rows starting at image
-    row ``y0``."""
+    None."""
     K, h, w = cands.shape
     ys, xs = torch.meshgrid(
-        torch.arange(y0, y0 + h, device=cands.device), torch.arange(w, device=cands.device),
+        torch.arange(h, device=cands.device), torch.arange(w, device=cands.device),
         indexing="ij",
     )
     ox = fisk.div_scalar(xs.float() - p.cx, p.fx) * cands
@@ -213,7 +207,7 @@ def accept_reference(depth, cost, costs, cands, masks=None):
 
 
 def _bind(mode, cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples,
-          masks=None, depth=None, cost=None, out=None, y0=0):
+          masks=None, depth=None, cost=None, out=None):
     """Check the operands and bind one launch: (C function, its arguments,
     the pose rows they point to, which must outlive the call)."""
     dev = cands.device
@@ -258,7 +252,7 @@ def _bind(mode, cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_s
     prm.fx, prm.fy, prm.cx, prm.cy = p.fx, p.fy, p.cx, p.cy
     prm.lam, prm.arf, prm.bf, prm.omega = p.lam, p.abs_resize_factor, p.basefocal, p.omega
     prm.n_frames, prm.active_n, prm.n_priors, prm.k = N, int(active_n), D, K
-    prm.h, prm.w, prm.y0 = h, w, int(y0)
+    prm.h, prm.w = h, w
     prm.tile = geometry(K, N, D, h, w).tile
 
     def ptr(t):
@@ -287,122 +281,33 @@ def _launch(mode, *operands, **kw):
                        kw.get("masks") is not None] += 1
 
 
-def cost_map_score(cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples=None,
-                   y0=0):
+def cost_map_score(cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples=None):
     """Normalised (K, h, w) cost of the K candidate depth maps: the flow arm
     (track = (tx, ty, obx, oby), each (N, h, w)) plus the fused prior arm
     (prior_samples = (target (D,h,w), weight (D,h,w), dp_Rs, dp_ts) or
-    None); the planes may be a row band starting at image row ``y0``. CPU
-    tensors take the plain version; CUDA tensors launch the kernel in score
-    mode."""
+    None). CPU tensors take the plain version; CUDA tensors launch the
+    kernel in score mode."""
     if cands.device.type == "cpu":
         return normalize_cost(*cost_map_tracked_reference(
-            cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples, y0))
+            cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples))
     out = torch.empty_like(cands)
     _launch(_SCORE, cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples,
-            out=out, y0=y0)
+            out=out)
     return out
 
 
 def cost_map_accept(depth, cost, cands, masks, track, track_inb, rigidness, Rs, ts, active_n,
-                    p, prior_samples=None, y0=0):
+                    p, prior_samples=None):
     """Score a (K, h, w) proposal batch and accept it per pixel
     (``accept_reference``'s semantics); masks: (K, h, w) bool, or None for
-    all kept; the planes may be a row band starting at image row ``y0``.
-    Returns (depth, cost). CPU tensors compose the plain versions and
-    return new tensors; CUDA tensors launch the kernel in accept mode,
+    all kept. Returns (depth, cost). CPU tensors compose the plain versions
+    and return new tensors; CUDA tensors launch the kernel in accept mode,
     which updates ``depth`` and ``cost`` in place and returns them."""
     if cands.device.type == "cpu":
         costs = normalize_cost(*cost_map_tracked_reference(
-            cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples, y0))
+            cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples))
         return accept_reference(depth, cost, costs, cands, masks)
     _launch(_ACCEPT, cands, track, track_inb, rigidness, Rs, ts, active_n, p, prior_samples,
-            masks=masks, depth=depth, cost=cost, y0=y0)
+            masks=masks, depth=depth, cost=cost)
     return depth, cost
 
-
-# --------------------------------------------------------------------------
-# row bands: the multi-card solve (parallel/mesh.py) cuts the image's rows
-# into one band per device of the mesh's sp axis
-# --------------------------------------------------------------------------
-
-
-class Band(NamedTuple):
-    """One row band's share of the cost's per-pixel planes, on its device:
-    image rows [y0, y0 + h)."""
-
-    y0: int
-    track: tuple
-    track_inb: torch.Tensor
-    rigidness: torch.Tensor
-    Rs: torch.Tensor
-    ts: torch.Tensor
-    prior_samples: tuple | None
-
-
-# kernel launches per band index since the last reset (the chip smoke test
-# reads them; each launch is counted in cost_kernel_launches too)
-band_launches: collections.Counter = collections.Counter()
-
-
-def split_bands(devices, track, track_inb, rigidness, Rs, ts, prior_samples=None) -> list[Band]:
-    """Cut the (N, H, w) planes into one contiguous row band per device
-    (``hints.bounds``' cut); the poses go to every device. A round cuts
-    them once; its proposal batches then move only their own maps."""
-
-    def cut(x):
-        return hints.split(x, devices, 1)
-
-    tracks = [cut(t) for t in track]
-    tinbs, rigs = cut(track_inb), cut(rigidness)
-    ps = _prior_stack(prior_samples)
-    pts = pws = None
-    if ps is not None:
-        pts, pws = cut(ps[0]), cut(ps[1])
-    bands = []
-    for i, (dev, (a, _)) in enumerate(zip(devices, hints.bounds(rigidness.shape[1], len(devices)))):
-        bps = None if ps is None else (pts[i], pws[i], ps[2].to(dev), ps[3].to(dev))
-        bands.append(Band(a, tuple(t[i] for t in tracks), tinbs[i], rigs[i], Rs.to(dev),
-                          ts.to(dev), bps))
-    return bands
-
-
-def _band_call(i, fn, *args, **kw):
-    before = cost_kernel_launches
-    out = fn(*args, **kw)
-    band_launches[i] += cost_kernel_launches - before
-    return out
-
-
-def cost_map_score_bands(cands, bands, active_n, p, score=cost_map_score):
-    """``score`` (``cost_map_score``) of the (K, H, w) candidates, one
-    launch per row band on the band's device; the (K, H, w) result on
-    ``cands``' device. The engine passes the wrapper it imported, so a
-    profiler that wraps the engine's ``cost_map_score`` times every band."""
-    devs = [b.rigidness.device for b in bands]
-    parts = [
-        _band_call(i, score, c, b.track, b.track_inb, b.rigidness, b.Rs, b.ts,
-                   active_n, p, prior_samples=b.prior_samples, y0=b.y0)
-        for i, (c, b) in enumerate(zip(hints.split(cands, devs, 1), bands))
-    ]
-    return hints.gather(parts, 1).to(cands.device)
-
-
-def cost_map_accept_bands(depth, cost, cands, masks, bands, active_n, p, accept=cost_map_accept):
-    """``accept`` (``cost_map_accept``) of a (K, H, w) proposal batch, one
-    launch per row band on the band's device (as ``cost_map_score_bands``
-    takes its wrapper). ``depth`` and ``cost`` are updated in place and
-    returned."""
-    devs = [b.rigidness.device for b in bands]
-    n = len(bands)
-    ds, cs = hints.split(depth, devs, 0), hints.split(cost, devs, 0)
-    ks = hints.split(cands, devs, 1)
-    ms = [None] * n if masks is None else hints.split(masks, devs, 1)
-    outs = [
-        _band_call(i, accept, ds[i], cs[i], ks[i], ms[i], b.track, b.track_inb,
-                   b.rigidness, b.Rs, b.ts, active_n, p, prior_samples=b.prior_samples, y0=b.y0)
-        for i, b in enumerate(bands)
-    ]
-    hints.gather([o[0] for o in outs], 0, depth)
-    hints.gather([o[1] for o in outs], 0, cost)
-    return depth, cost

@@ -12,10 +12,6 @@ compose by 2x2 products, so a line can be evaluated by a scan.
   row launch and a column launch, counted once in
   ``fb_smooth_kernel_launches``); for CPU tensors it calls the plain
   version. There is no fallback from one to the other.
-* ``fb_smooth_pass`` / ``fb_smooth_bands`` — the two passes launched
-  apart (each counted as one launch), and the multi-card solve's banded
-  smoothing over them: the row pass on bands of rows, its result gathered,
-  the column pass on bands of columns.
 * ``fb_smooth_reference`` — the plain version (:134's serial recurrences):
   each line step is a handful of elementwise ops over all lines at once,
   so one call is about 2 * (h + w) sequential steps.
@@ -30,7 +26,6 @@ compose by 2x2 products, so a line can be evaluated by a scan.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -39,7 +34,6 @@ import numpy as np
 import torch
 
 from voldor_tpu_torch.ops import _build
-from voldor_tpu_torch.parallel import hints
 
 # Calls that launched the CUDA kernel since the last reset (plain int; the
 # chip smoke test reads it to show the main path went through the kernel).
@@ -265,63 +259,3 @@ def fb_smooth(prob: torch.Tensor, s0_ems_prob: float, no_change_prob: float,
     fb_smooth_kernel_launches += 1
     return out
 
-
-# --------------------------------------------------------------------------
-# row bands: the multi-card solve (parallel/mesh.py) smooths a map cut
-# into one band per device of the mesh's sp axis
-# --------------------------------------------------------------------------
-
-_PASS_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                  + [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p])
-
-# pass launches per band index since the last reset (the chip smoke test
-# reads them; each is counted in fb_smooth_kernel_launches too)
-band_launches: collections.Counter = collections.Counter()
-
-
-def fb_smooth_pass(prob: torch.Tensor, s0_ems_prob: float, no_change_prob: float,
-                   columns: bool) -> torch.Tensor:
-    """One of fb_smooth's two passes over an (M, h, w) stack: its rows, or
-    (``columns``) its columns, into a new tensor. CPU tensors take the plain
-    version's pass; a CUDA tensor (contiguous float32) launches the
-    kernel's pass, counted as one launch."""
-    c = _constants(s0_ems_prob, no_change_prob)
-    if prob.device.type == "cpu":
-        if columns:
-            return _line(prob.transpose(-1, -2), c).transpose(-1, -2).contiguous()
-        return _line(prob, c)
-    _check_stack(prob, "fb_smooth_pass")
-    out = torch.empty_like(prob)
-    global fb_smooth_kernel_launches
-    m, h, w = prob.shape
-    consts = _constants_array(float(s0_ems_prob), float(no_change_prob))
-    fn = _build.function("fb_smooth_pass_launch", _PASS_ARGTYPES)
-    with torch.cuda.device(prob.device):  # the launch goes to the current device
-        err = fn(prob.data_ptr(), out.data_ptr(), m, h, w, int(columns), consts,
-                 torch.cuda.current_stream(prob.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fb_smooth pass launch failed: cudaError {err}")
-    fb_smooth_kernel_launches += 1
-    return out
-
-
-def fb_smooth_bands(prob: torch.Tensor, s0_ems_prob: float, no_change_prob: float, devices,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """``fb_smooth`` of an (M, H, w) stack over row bands: each device
-    smooths the rows of its band of rows; the row pass's result is
-    gathered on ``prob``'s device; each device then smooths the columns of
-    its band of columns, and those are gathered into ``out`` (a new tensor
-    if None). Equal to the whole-map passes: a row pass never reads another
-    row, a column pass never another column."""
-
-    def passes(x, dim, columns):
-        parts = []
-        for i, band in enumerate(hints.split(x, devices, dim)):
-            before = fb_smooth_kernel_launches
-            parts.append(fb_smooth_pass(band, s0_ems_prob, no_change_prob, columns))
-            band_launches[i] += fb_smooth_kernel_launches - before
-        return parts
-
-    mid = hints.gather(passes(prob, 1, False), 1, torch.empty_like(prob))
-    out = torch.empty_like(prob) if out is None else out
-    return hints.gather(passes(mid, 2, True), 2, out)

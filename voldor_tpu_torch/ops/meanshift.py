@@ -19,10 +19,6 @@ frame). The JAX package's search is one jitted ``lax.while_loop``; here:
   fixed order, which the kernel repeats.
 
 The init-trial draws are split out (``draw_meanshift_trials``).
-
-Under a mesh with a ``hyp`` axis the pool is gathered on one device before
-the search (``vo/pose_step.py:_solve_and_fuse``), so a mesh's search is a
-mesh of one's arithmetic.
 """
 
 from __future__ import annotations

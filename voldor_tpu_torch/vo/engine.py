@@ -15,9 +15,7 @@ fb_smooth kernel (``ops/fb_smooth.py``). With the 'tracked' or 'anchored'
 cost it takes the batched proposal path, scored and accepted by the
 hand-written CUDA cost kernel (``ops/cost.py``); with the reference's
 'projected' cost it accepts one proposal map at a time, in torch ops. On
-CPU tensors the kernels' plain versions run. Under an active mesh with an
-``sp`` axis (``parallel/mesh.py``) both kernels launch once per row band
-on the band's device; without one nothing changes.
+CPU tensors the kernels' plain versions run.
 
 Besides the fused ``solve``, the engine keeps the JAX package's
 reference-structured host loop (``solve_stepwise`` over
@@ -37,24 +35,13 @@ import torch
 
 from voldor_tpu_torch.config import VoldorConfig
 from voldor_tpu_torch.ops import epipolar, lie
-from voldor_tpu_torch.ops.cost import (
-    cost_map_accept, cost_map_accept_bands, cost_map_score, cost_map_score_bands, split_bands,
-)
-from voldor_tpu_torch.ops.fb_smooth import fb_smooth, fb_smooth_bands
-from voldor_tpu_torch.parallel import hints
+from voldor_tpu_torch.ops.cost import cost_map_accept, cost_map_score
+from voldor_tpu_torch.ops.fb_smooth import fb_smooth
 from voldor_tpu_torch.utils.profiling import count, device_sync, host_read, span
 from voldor_tpu_torch.vo import em
 from voldor_tpu_torch.vo.pose_step import _cameras_window_core, _cameras_window_jacobi_core
 
 _FLT_EPS = 1.1920929e-07
-
-
-def _smooth(prob, fb_emm, fb_ncp, out=None):
-    """fb_smooth, or over the row bands of the active mesh's sp axis."""
-    sp = hints.axis_devices("sp")
-    if sp is None:
-        return fb_smooth(prob, fb_emm, fb_ncp, out=out)
-    return fb_smooth_bands(prob, fb_emm, fb_ncp, sp, out=out)
 
 
 def fb_smooth_masked(rigidness, active_n: int, fb_emm, fb_ncp):
@@ -65,7 +52,7 @@ def fb_smooth_masked(rigidness, active_n: int, fb_emm, fb_ncp):
         return rigidness.clone()
     out = torch.empty_like(rigidness)
     out[active_n:] = rigidness[active_n:]
-    _smooth(rigidness[:active_n], fb_emm, fb_ncp, out=out[:active_n])
+    fb_smooth(rigidness[:active_n], fb_emm, fb_ncp, out=out[:active_n])
     return out
 
 
@@ -97,7 +84,7 @@ def _depth_round_core(
         if use_flows:
             rigidness = fb_smooth_masked(rigidness, active_n, fb_emm, fb_ncp)
         if use_priors:
-            dp_confs = _smooth(dp_confs, fb_emm, fb_ncp)
+            dp_confs = fb_smooth(dp_confs, fb_emm, fb_ncp)
 
     if not rig_only and not tracked:
         # the reference's cost: every candidate re-traced through the window
@@ -130,17 +117,12 @@ def _depth_round_core(
             )
 
         if use_flows:
-            # scored and accepted per row band of the active mesh's sp axis
-            # (one band without one), the bands' planes cut once per round
-            sp = hints.axis_devices("sp") or [rigidness.device]
-            bands = split_bands(sp, track, tinb, rigidness, Rs, ts, pr_samples)
-
             def accept_fn(depth, cost, cands, masks):
-                return cost_map_accept_bands(depth, cost, cands, masks, bands, active_n, params,
-                                             accept=cost_map_accept)
+                return cost_map_accept(depth, cost, cands, masks, track, tinb, rigidness, Rs, ts,
+                                       active_n, params, pr_samples)
 
-            cost = cost_map_score_bands(depth[None], bands, active_n, params,
-                                        score=cost_map_score)[0]
+            cost = cost_map_score(depth[None], track, tinb, rigidness, Rs, ts, active_n, params,
+                                  pr_samples)[0]
             depth, cost = em.optimize_depth_batched(
                 depth, cost, accept_fn, u, global_prop_step=gstep,
                 local_prop_width=lwidth, range_factor=range_factor,

@@ -11,10 +11,7 @@ registry ``_get_batch_p4p`` :398 (LambdaTwist or AP3P), ``_pose_step_core``
 ``_cameras_window_core`` :639 (sequential sweep) and
 ``_cameras_window_jacobi_core`` :740 (batched sweep). The window sweep's
 ``lax.cond``/``fori_loop`` become host control flow. Random draws come from
-a ``torch.Generator`` through the ``draw_*`` helpers of each op. In place
-of the JAX package's ``shard_hint`` on the hypothesis pool (:493-495,
-:834-836), ``_solve_and_fuse`` splits the drawn hypotheses over the active
-mesh's ``hyp`` axis (``parallel/hints.py``); without one it is unchanged.
+a ``torch.Generator`` through the ``draw_*`` helpers of each op.
 """
 
 from __future__ import annotations
@@ -29,7 +26,6 @@ from voldor_tpu_torch.ops.image import bilinear_sample
 from voldor_tpu_torch.ops.meanshift import draw_meanshift_trials, meanshift
 from voldor_tpu_torch.ops.p3p import draw_p4p_indices
 from voldor_tpu_torch.ops.robust_gaussian import fit_robust_gaussian
-from voldor_tpu_torch.parallel import hints
 from voldor_tpu_torch.utils.profiling import device_sync, host_read
 from voldor_tpu_torch.vo.em import EmParams
 
@@ -294,15 +290,7 @@ def _solve_and_fuse(p2s, p3s, valid, ms_init, successive, rg_refine: bool, gen, 
     n_points = valid.sum(dim=-1).to(torch.int32)
     idx = draw_p4p_indices(gen, valid, hp["n_poses_to_sample"])
     rs = hp["meanshift_rvec_scale"]
-    # the hypotheses, drawn once above, split over the active mesh's hyp
-    # axis (one slice without one): each device solves its slice against
-    # the replicated correspondences
-    hyp = hints.axis_devices("hyp") or [valid.device]
-    parts = [
-        _p4p_pool(solver, p2s.to(d), p3s.to(d), valid.to(d), i, p, rs)
-        for d, i in zip(hyp, hints.split(idx, hyp, 1))
-    ]
-    pool, pool_valid = (hints.gather([part[j] for part in parts], 1) for j in range(2))
+    pool, pool_valid = _p4p_pool(solver, p2s, p3s, valid, idx, p, rs)
     sample_count = pool_valid.sum(dim=-1).to(torch.int32)
 
     init = torch.cat([ms_init[:, :3] * rs, ms_init[:, 3:6]], dim=-1)
