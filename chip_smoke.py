@@ -67,6 +67,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    give NaN positions, +inf and NaN depths): track planes and in-bounds bitwise equal, rigidness NaN where
    NaN and within CHAIN_RIG_ATOL (its bitwise share printed), the
    rigidness-only launch and a repeat bitwise equal;
+5d. the pose collect kernel vs plain: the kernel of ops/pose_collect.py in
+   both modes against the plain collects of vo/pose_step.py on the card at
+   the bench window (185x613, N = 5) over COLLECT_VARIANTS (the frame-0
+   depth with NaN, +inf, negative, too near and too far patches; poses that
+   carry the traces off the map; the rigidness-sum test on; the far-depth
+   test off; the anchored tracks of the chain trace in place of the
+   observed ones), strides 1 and 2 and max_trace_on_flow 0, 1 and 3: the
+   traced collect at every target, the obs collect at every active_n with
+   the in-bounds flags false over a patch from frame 2 on; p2, p3 and
+   valid bitwise equal, a repeat launch bitwise equal;
 6. device-only times (CUDA events around 100 back-to-back launches of the
    bound C call, no wrapper in between) of the fb_smooth kernel and the
    cost kernel in score mode and in accept mode with and without masks
@@ -106,7 +116,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 128 and 256 threads a block, beside its bound (bytes; CT_PIECES) and
    its registers, and update_rigidness_and_tracks through the wrapper
    beside the plain composition it replaced (host ms a call, dispatched
-   without synchronising, and event ms a call);
+   without synchronising, and event ms a call); and the pose collect
+   kernel in both modes at the sweeps' shapes (obs: active_n = 5; traced:
+   the last target) beside its bound (bytes) and its registers, and a
+   collect through the wrapper beside the plain collect (host ms and event
+   ms a call);
 7. the VO windows: three consecutive 5-flow mono VO windows of the bench
    scene (613x185, seed 7) through voldor_tpu_torch's VO entry point on the
    card, with 0, 1 and 2 depth priors and the SLAM layer's constant-velocity
@@ -120,9 +134,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    flow-fed round's cost time (and, with --parent, each checkout's);
 8. no host sync: the same three windows with every call of the kernel
    wrappers (fb_smooth, cost score, cost accept, the chain trace through
-   em.update_rigidness_and_tracks) and of the pose sweep's
-   _solve_and_fuse (its three kernels and the draws between them) run
-   under torch.cuda.set_sync_debug_mode("error");
+   em.update_rigidness_and_tracks, the pose collect) and of the pose
+   sweep's _solve_and_fuse (its three kernels and the draws between them)
+   run under torch.cuda.set_sync_debug_mode("error");
 9. times: the median warm wall time of each window, fb_smooth's share of a
    window;
 10. slam-mono: VOLDOR_SLAM(mode="mono", device="cuda").process_vo over the
@@ -228,7 +242,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The kernels' launch counts sum the main-path phases (7, 10, 11, 15, 16, 17
 and 18; phase 16's child process prints its own counts). Every VO phase must
-launch each of the pose sweep's three kernels (check_pose_counts). The falign kernels run
+launch each of the pose sweep's three kernels and its collect kernel
+(check_pose_counts). The falign kernels run
 on the mapping half only: their launches are those of phases 15 and 16
 (the full pass's checked pass and the CLI's child), by path in the record.
 The second-to-last line of stdout is a JSON record of the kernels; the
@@ -876,6 +891,227 @@ def chain_trace_times(np, torch, bi):
     log(f"[times] update_rigidness_and_tracks a call, order plain, wrapper, wrapper, plain: host ms "
         f"(dispatch of {N_LAUNCH} calls, no sync) {json.dumps(rec['host_ms_per_call'])}; event ms "
         f"(median of 20) {json.dumps(rec['event_ms_per_call'])}")
+    return rec
+
+
+# --------------------------------------------------------------------------
+# the pose sweep's collect: traced and obs correspondences
+# --------------------------------------------------------------------------
+
+COLLECT_VARIANTS = ("shipped", "edges", "rig_sum", "no_far", "anchored")
+
+
+def collect_inputs(torch, bi):
+    """The collect's operands at the bench window: the frame-0 depth with the
+    depths the collect must refuse (NaN, +inf, negative, nearer than the
+    least and farther than the greatest sample depth), the rigidness and
+    the anchored tracks of the chain trace at the jittered depth (rigidness
+    well below 1 in places), and the shipped collect settings of the bench
+    config."""
+    from voldor_tpu_torch.config import VoldorConfig
+    from voldor_tpu_torch.ops import chain_trace as ct
+    from voldor_tpu_torch.vo import engine, pose_step
+
+    depth = bi["d0"].clone()
+    depth[10:20, 50:400] = torch.nan
+    depth[30:33, 50:400] = torch.inf
+    depth[60:70, 100:300] = -2.0
+    depth[90:92, :] = 0.01
+    depth[120:125, 300:500] = 2000.0
+    rig, inb, track = ct.chain_trace(bi["cands_all"][1].contiguous(), bi["fl"], bi["Rs"],
+                                     bi["ts"], WINDOW, bi["p"])
+    cfg = VoldorConfig(fx=FX, fy=FY, cx=W / 2, cy=H / 2, basefocal=BASEFOCAL)
+    cfg.read_config(CONFIG)
+    return dict(depth=depth.contiguous(), rig=rig, anchored=(track, inb),
+                ckw=pose_step._collect_kw(engine.pose_hp(cfg)))
+
+
+def collect_cases(torch, bi, ci, mode, variant, M, stride):
+    """(ts, ckw, [(active, inputs)]) of one case: every target (traced) or
+    every active_n (obs, the in-bounds flags false over a patch from frame
+    2 on)."""
+    from voldor_tpu_torch.vo import em
+
+    ts = bi["ts"].clone()
+    ckw = dict(ci["ckw"], max_trace_on_flow=M, sample_stride=stride)
+    if variant == "edges":
+        ts[:, 2] = -3.0
+        ts[:, 0] = 2.5
+    elif variant == "rig_sum":
+        ckw["rigidness_sum_threshold"] = WINDOW + 1.5
+    elif variant == "no_far":
+        ckw["sample_max_depth"] = 0.0
+    if mode == "traced":
+        return ts, ckw, [(a, dict(flows=bi["fl"])) for a in range(WINDOW)]
+    cases = []
+    for n in range(WINDOW + 1):
+        if variant == "anchored":
+            track, tinb = ci["anchored"]
+        else:
+            track, tinb = em.precompute_obs_tracks(bi["fl"], n, bi["p"])
+        tinb = tinb.clone()
+        tinb[2:, 100:140, 200:400] = False
+        cases.append((n, dict(obs_track=track, obs_tinb=tinb)))
+    return ts, ckw, cases
+
+
+def plain_collect(bi, ci, ts, active, ckw, flows=None, obs_track=None, obs_tinb=None):
+    from voldor_tpu_torch.vo import pose_step
+
+    args = (ci["rig"], bi["Rs"], ts, active, bi["p"])
+    if obs_track is None:
+        return pose_step.collect_p3p_instances(ci["depth"], flows, *args, **ckw)
+    return pose_step.collect_p3p_instances_obs(ci["depth"], obs_track, obs_tinb, *args, **ckw)
+
+
+def phase_pose_collect(np, torch, bi, ci):
+    """The pose collect kernel against the plain collects on the card, both
+    modes, over COLLECT_VARIANTS, strides 1 and 2 and max_trace_on_flow 0,
+    1 and 3: p2, p3 and valid bitwise equal, and a repeat launch bitwise
+    equal. Returns the number of launches compared."""
+    from voldor_tpu_torch.ops import pose_collect as pc
+
+    n_cases, n_valid = 0, {"traced": 0, "obs": 0}
+    for mode in ("traced", "obs"):
+        for variant in COLLECT_VARIANTS:
+            if mode == "traced" and variant == "anchored":
+                continue
+            for stride in (1, 2):
+                for M in (0, 1, 3):
+                    ts, ckw, cases = collect_cases(torch, bi, ci, mode, variant, M, stride)
+                    for active, extra in cases:
+                        before = pc.pose_collect_launches
+                        out = pc.pose_collect(ci["depth"], ci["rig"], bi["Rs"], ts, active, bi["p"],
+                                              **extra, **ckw)
+                        again = pc.pose_collect(ci["depth"], ci["rig"], bi["Rs"], ts, active,
+                                                bi["p"], **extra, **ckw)
+                        ref = plain_collect(bi, ci, ts, active, ckw, **extra)
+                        same = (torch.equal(out[2], ref[2]) and same_bits(torch, out[0], ref[0])
+                                and same_bits(torch, out[1], ref[1]))
+                        repeat = all(same_bits(torch, a.float(), b.float())
+                                     for a, b in zip(again, out))
+                        if not (same and repeat and pc.pose_collect_launches == before + 2):
+                            raise AssertionError(
+                                f"pose collect kernel disagrees with the plain version ({mode}, "
+                                f"{variant}, stride {stride}, M {M}, active {active}): bitwise "
+                                f"{same}, repeat {repeat}")
+                        n_cases += 1
+                        n_valid[mode] += int(ref[2].sum())
+    log(f"[collect] both modes bitwise equal to the plain collects on {n_cases} launches "
+        f"({', '.join(COLLECT_VARIANTS)}; strides 1, 2; max_trace_on_flow 0, 1, 3; every target "
+        f"and active_n), a repeat bitwise equal; valid correspondences over the cases {n_valid}")
+    return n_cases
+
+
+def collect_frames_read(torch, rig, a, lo, thresh):
+    """Per pixel of the traced collect at target a: (rigidness planes the
+    product reads, flow frames the trace samples), as the kernel walks."""
+    prod = torch.ones_like(rig[0])
+    alive = torch.ones_like(rig[0], dtype=torch.bool)
+    n_rig = torch.zeros_like(rig[0], dtype=torch.int32)
+    n_trace = torch.zeros_like(n_rig)
+    for f in range(a, lo - 1, -1):
+        n_rig = n_rig + alive.to(torch.int32)
+        pn = prod * rig[f]
+        alive = alive & (pn > thresh)
+        prod = torch.where(alive, pn, prod)
+        n_trace = n_trace + alive.to(torch.int32)
+    return int(n_rig.sum()), int(n_trace.sum())
+
+
+def pose_collect_times(np, torch, bi, ci):
+    """The pose collect kernel device-only at the sweeps' shapes (stride 1,
+    the shipped max_trace_on_flow): obs at active_n = N (the Jacobi sweep)
+    and traced at the last target (the sequential sweep's longest walk),
+    bound C calls, CUDA events over N_LAUNCH launches, two rounds in
+    opposite orders; beside its bound (the bytes these inputs need over
+    3.35 TB/s: obs every input plane once and the outputs; traced the
+    depth, the rigidness planes the product reads, one float2 a traced
+    frame and the outputs), its registers and occupancy, and a collect
+    through the wrapper beside the plain collect (host ms of N_LAUNCH calls
+    dispatched without synchronising, and event ms a call)."""
+    from voldor_tpu_torch.ops import _build
+    from voldor_tpu_torch.ops import pose_collect as pc
+    from voldor_tpu_torch.vo import em
+
+    px = H * W
+    ckw = dict(ci["ckw"])
+    M = int(ckw["max_trace_on_flow"])
+    track, tinb = em.precompute_obs_tracks(bi["fl"], WINDOW, bi["p"])
+    a = WINDOW - 1
+    shapes = {
+        "obs": (WINDOW, dict(obs_track=track, obs_tinb=tinb)),
+        "traced": (a, dict(flows=bi["fl"])),
+    }
+    bound = {m: pc._bind(ci["depth"], ci["rig"], bi["Rs"], bi["ts"], act, bi["p"],
+                         ex.get("flows"), ex.get("obs_track"), ex.get("obs_tinb"), **ckw)
+             for m, (act, ex) in shapes.items()}
+    runs = {m: [] for m in shapes}
+    for order in (list(shapes), list(shapes)[::-1]):
+        for m in order:
+            fn, args, _out, _poses = bound[m]
+            runs[m].append(device_ms(torch, lambda: checked(fn(*args), "pose collect")))
+    info_fn = _build.function("pose_collect_info", [ctypes.c_int, ctypes.c_int,
+                                                    ctypes.POINTER(ctypes.c_int)])
+    occ = {}
+    for m in shapes:
+        info = (ctypes.c_int * 3)()
+        checked(info_fn(int(m == "obs"), pc.THREADS, info), "pose_collect_info")
+        occ[m] = dict(registers=info[0], spill_bytes=info[1],
+                      warps_per_sm=info[2] * pc.THREADS // 32)
+    lo = max(0, a - M + 1) if M > 0 else 0
+    n_rig, n_flow = collect_frames_read(torch, ci["rig"], a, lo, ckw["rigidness_threshold"])
+    out_b = 8 + 12 + 1
+    by_bytes = {
+        "obs": px * (4 + WINDOW * (4 + 16 + 1) + WINDOW * out_b),
+        "traced": px * (4 + out_b) + 4 * n_rig + 8 * n_flow,
+    }
+    bound_ms = {m: b / HBM_BYTES_PER_S * 1e3 for m, b in by_bytes.items()}
+
+    def wrapper(m):
+        act, ex = shapes[m]
+        return lambda: pc.pose_collect(ci["depth"], ci["rig"], bi["Rs"], bi["ts"], act, bi["p"],
+                                       **ex, **ckw)
+
+    def plain(m):
+        act, ex = shapes[m]
+        return lambda: plain_collect(bi, ci, bi["ts"], act, ckw, **ex)
+
+    def host_ms(fn, n=N_LAUNCH):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        return dt
+
+    calls = {}
+    for m in shapes:
+        for name, make in (("plain", plain), ("kernel", wrapper), ("kernel", wrapper),
+                           ("plain", plain)):
+            fn = make(m)
+            calls.setdefault(f"{m}_{name}", []).append((host_ms(fn), event_ms(torch, fn, 20)))
+    ms = {m: min(v) for m, v in runs.items()}
+    rec = dict(ms=ms["obs"], ms_traced=ms["traced"], threads=pc.THREADS,
+               bound_ms=bound_ms["obs"], bound_ms_traced=bound_ms["traced"], bound_by="bytes",
+               bytes_by_mode=by_bytes, roofline_pct={m: 100.0 * bound_ms[m] / ms[m] for m in ms},
+               occupancy=occ, traced_reads=dict(rig_planes=n_rig, flow_frames=n_flow),
+               plain_ms=min(e for _, e in calls["obs_plain"]),
+               plain_ms_traced=min(e for _, e in calls["traced_plain"]),
+               host_ms_per_call={k: [h for h, _ in v] for k, v in calls.items()},
+               event_ms_per_call={k: [e for _, e in v] for k, v in calls.items()})
+    log(f"[times] pose collect {H}x{W}, N={WINDOW}: device ms per launch (min of two rounds of "
+        f"{N_LAUNCH}) obs {ms['obs']:.5f} (active_n {WINDOW}), traced {ms['traced']:.5f} (target "
+        f"{a}, max_trace_on_flow {M}); bound by bytes obs {bound_ms['obs'] * 1e3:.2f} us "
+        f"({by_bytes['obs'] / 1e6:.2f} MB), traced {bound_ms['traced'] * 1e3:.2f} us "
+        f"({by_bytes['traced'] / 1e6:.2f} MB; rigidness planes read {n_rig}, flow frames "
+        f"{n_flow}); "
+        f"occupancy {json.dumps(occ)}")
+    log(f"[times] a collect, order plain, kernel, kernel, plain: host ms (dispatch of {N_LAUNCH} "
+        f"calls, no sync) {json.dumps(rec['host_ms_per_call'])}; event ms (median of 20) "
+        f"{json.dumps(rec['event_ms_per_call'])}")
     return rec
 
 
@@ -1786,6 +2022,7 @@ def reset_counts():
     from voldor_tpu_torch.ops import fb_smooth as fb
     from voldor_tpu_torch.ops import meanshift as ms
     from voldor_tpu_torch.ops import p3p
+    from voldor_tpu_torch.ops import pose_collect as pc
     from voldor_tpu_torch.ops import robust_gaussian as rg
 
     cost_mod.cost_kernel_launches = cost_mod.cost_score_launches = 0
@@ -1794,33 +2031,36 @@ def reset_counts():
     ct.chain_trace_launches = 0
     fk.reset_counts()
     p3p.p4p_kernel_launches = ms.meanshift_kernel_launches = rg.rg_kernel_launches = 0
+    pc.pose_collect_launches = 0
 
 
 def read_counts():
     """Launches since reset_counts: the cost kernel (score mode apart; shapes:
     by (mode, K, masked)), fb_smooth, the chain trace (ct), the falign
     kernels (linearize: the one-shot linearise and scores launches;
-    lm_chunk: the LM chunks) and the pose sweep's three (p4p, meanshift,
-    rg)."""
+    lm_chunk: the LM chunks), the pose sweep's three (p4p, meanshift,
+    rg) and its collect (pc)."""
     from voldor_tpu_torch.ops import chain_trace as ct
     from voldor_tpu_torch.ops import cost as cost_mod
     from voldor_tpu_torch.ops import falign_kernels as fk
     from voldor_tpu_torch.ops import fb_smooth as fb
     from voldor_tpu_torch.ops import meanshift as ms
     from voldor_tpu_torch.ops import p3p
+    from voldor_tpu_torch.ops import pose_collect as pc
     from voldor_tpu_torch.ops import robust_gaussian as rg
 
     return dict(cost=cost_mod.cost_kernel_launches, score=cost_mod.cost_score_launches,
                 shapes={shape_name(k): n for k, n in cost_mod.cost_launch_shapes.items()},
                 fb=fb.fb_smooth_kernel_launches, ct=ct.chain_trace_launches,
                 p4p=p3p.p4p_kernel_launches, meanshift=ms.meanshift_kernel_launches,
-                rg=rg.rg_kernel_launches,
+                rg=rg.rg_kernel_launches, pc=pc.pose_collect_launches,
                 **fk.read_counts())
 
 
 def check_pose_counts(what, counts):
-    """The pose sweep ran on its three kernels: every one was launched."""
-    missing = [k for k in POSE_KERNELS if counts.get(k, 0) < 1]
+    """The pose sweep ran on its three kernels and its collect kernel: every
+    one was launched."""
+    missing = [k for k in POSE_KERNELS + ("pc",) if counts.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"{what}: pose kernels never launched: {missing} ({counts})")
 
@@ -1943,9 +2183,9 @@ def phase_slam(np, torch, mode, flows, gt, disps=None, n_timed=3):
 
 def phase_no_sync(np, torch, scene):
     """The three windows again, every kernel-wrapper call of their depth
-    rounds (the rigidness refresh's chain trace included) and every call of
-    the pose sweep's _solve_and_fuse (its P4P, meanshift and
-    robust-Gaussian kernels and the draws between them) under
+    rounds (the rigidness refresh's chain trace included), every pose
+    collect and every call of the pose sweep's _solve_and_fuse (its P4P,
+    meanshift and robust-Gaussian kernels and the draws between them) under
     torch.cuda.set_sync_debug_mode("error")."""
     from voldor_tpu_torch.vo import em
     from voldor_tpu_torch.vo import engine as engine_mod
@@ -1968,11 +2208,13 @@ def phase_no_sync(np, torch, scene):
     orig = {n: getattr(engine_mod, n) for n in names}
     em_orig = {n: getattr(em, n) for n in em_names}
     fuse = pose_step._solve_and_fuse
+    collect = pose_step.pose_collect
     for n in names:
         setattr(engine_mod, n, guarded(n, orig[n]))
     for n in em_names:
         setattr(em, n, guarded(n, em_orig[n]))
     pose_step._solve_and_fuse = guarded("_solve_and_fuse", fuse)
+    pose_step.pose_collect = guarded("pose_collect", collect)
     try:
         run_sequence(np, torch, scene)
     finally:
@@ -1981,8 +2223,9 @@ def phase_no_sync(np, torch, scene):
         for n in em_names:
             setattr(em, n, em_orig[n])
         pose_step._solve_and_fuse = fuse
+        pose_step.pose_collect = collect
     log(f"[no-sync] wrapper calls under set_sync_debug_mode('error') over the 3 windows: {calls}")
-    if set(calls) != set(names) | set(em_names) | {"_solve_and_fuse"}:
+    if set(calls) != set(names) | set(em_names) | {"_solve_and_fuse", "pose_collect"}:
         raise AssertionError(f"not every kernel wrapper ran: {calls}")
 
 
@@ -3572,12 +3815,13 @@ CLI_CHILD = (
     "import json, runpy\n"
     "runpy.run_module('voldor_tpu_torch.demo', run_name='__main__', alter_sys=True)\n"
     "from voldor_tpu_torch.ops import chain_trace, cost, falign_kernels, fb_smooth, meanshift, "
-    "p3p, robust_gaussian\n"
+    "p3p, pose_collect, robust_gaussian\n"
     "print('[cli-counts] ' + json.dumps(dict(cost=cost.cost_kernel_launches, "
     "score=cost.cost_score_launches, fb=fb_smooth.fb_smooth_kernel_launches, "
     "ct=chain_trace.chain_trace_launches, "
     "p4p=p3p.p4p_kernel_launches, meanshift=meanshift.meanshift_kernel_launches, "
-    "rg=robust_gaussian.rg_kernel_launches, **falign_kernels.read_counts())))\n"
+    "rg=robust_gaussian.rg_kernel_launches, pc=pose_collect.pose_collect_launches, "
+    "**falign_kernels.read_counts())))\n"
 )
 
 
@@ -3934,6 +4178,8 @@ def main():
     score_err = phase_score(np, torch, bi, scene)
     accept_frac = phase_accept(np, torch, bi, scene)
     chain_err, chain_bitwise = phase_chain_trace(np, torch, bi)
+    collect_in = collect_inputs(torch, bi)
+    collect_cases_n = phase_pose_collect(np, torch, bi, collect_in)
     pose_cap = capture_pose_inputs(np, torch, scene)
     pose_err = phase_pose_kernels(np, torch, pose_cap)
     pose_ab = phase_pose_ab(np, torch, scene)
@@ -3941,6 +4187,7 @@ def main():
     fb_rec, cost_rec = phase_times(np, torch, bi, sass, opt.parent)
     pose_rec = pose_times(np, torch, pose_cap)
     chain_rec = chain_trace_times(np, torch, bi)
+    collect_rec = pose_collect_times(np, torch, bi, collect_in)
     # the full-SLAM scene of the mapping half (phases 12-16); the falign
     # kernels' times at its batches' shapes
     sc = build_slam_scene(np, torch, SLAM_E2E_FLOWS)
@@ -3988,7 +4235,8 @@ def main():
         f"cost kernel launches {win_counts['cost']} ({win_counts['score']} in score mode), "
         f"fb_smooth kernel launches {win_counts['fb']}, chain trace kernel launches "
         f"{win_counts['ct']}, P4P / meanshift / robust Gaussian "
-        f"{win_counts['p4p']} / {win_counts['meanshift']} / {win_counts['rg']}; cold wall s "
+        f"{win_counts['p4p']} / {win_counts['meanshift']} / {win_counts['rg']}, pose collect "
+        f"{win_counts['pc']}; cold wall s "
         f"{[round(x, 4) for x in walls0]}")
     check_counts("windows", win_counts, sum(iters))
     gt = np.linalg.inv(scene[5][:N_WINDOWS * WINDOW + 1])  # cam -> world, frames 0..15
@@ -4191,6 +4439,20 @@ def main():
             "rigidness_bitwise_share": chain_bitwise,
             "library_ms": None,
             **chain_rec,
+        },
+        {
+            "name": "pose_collect",
+            "route": "cuda",
+            "source": "voldor_tpu_torch/csrc/pose_collect.cu",
+            "replaces": "voldor_tpu_torch/vo/pose_step.py:collect_p3p_instances, "
+                        "collect_p3p_instances_obs (voldor_tpu/vo/pose_step.py:37, :290)",
+            "launches": sum(c["pc"] for c in paths),
+            "launches_by_path": {n: c["pc"] for n, c in zip(path_names, paths)},
+            "max_abs_err": 0.0,
+            "bitwise_cases": collect_cases_n,
+            "library_ms": None,
+            "shape": f"obs at active_n={WINDOW} (the Jacobi sweep); traced at target {WINDOW - 1}",
+            **collect_rec,
         },
     ]}))
     faulthandler.cancel_dump_traceback_later()

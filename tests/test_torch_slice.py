@@ -185,7 +185,7 @@ def test_port_imports_no_jax():
         "voldor_tpu_torch.slam.gl_viewer, voldor_tpu_torch.utils.profiling, "
         "voldor_tpu_torch.utils.artifacts, voldor_tpu_torch.ops.p3p, "
         "voldor_tpu_torch.ops.meanshift, voldor_tpu_torch.ops.robust_gaussian, "
-        "voldor_tpu_torch.ops.reduce; "
+        "voldor_tpu_torch.ops.reduce, voldor_tpu_torch.ops.pose_collect; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'voldor_tpu' or m.startswith('voldor_tpu.')]; "
         "assert not bad, bad; print('clean')"

@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilinear.cuh"
+
 #define CHAIN_MAX_N 8
 
 struct ChainParams {
@@ -67,14 +69,9 @@ constexpr float kMinObsFmag = 2.0f;
 constexpr float kMaxObsFmag = 100.0f;
 constexpr float kZde = 1.1920929e-07f;
 
-// torch.clamp / torch.clamp_min: a NaN stays NaN
-__device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
-  return x != x ? x : fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float clamp_min_keep_nan(float x, float lo) {
-  return x != x ? x : fmaxf(x, lo);
-}
+using img::bilinear;
+using img::clamp_keep_nan;
+using img::clamp_min_keep_nan;
 
 // fisk.fisk_pdf: u = max(x*EST_RF, eps)^2 / scale,
 // pdf = c * u^-c * (1/u) * (1 + u^-c)^-2 / scale
@@ -100,32 +97,6 @@ __device__ __forceinline__ float rigidness_xy(float dx1, float dy1, float dx2, f
   const float p_in = fisk_pdf(diff_fmag, c, s);
   const float p_out = fisk_pdf(lam * obs_fmag, c, s);
   return p_in / (p_in + p_out);
-}
-
-// image.bilinear_sample of an (h, w) float2 map at (x, y)
-__device__ __forceinline__ float2 bilinear(const float2* __restrict__ img, float x, float y,
-                                           int w, int h) {
-  x = clamp_keep_nan(x, 0.0f, (float)(w - 1));
-  y = clamp_keep_nan(y, 0.0f, (float)(h - 1));
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const float fx = x - x0f;
-  const float fy = y - y0f;
-  const int x0 = x0f != x0f ? 0 : (int)x0f;
-  const int y0 = y0f != y0f ? 0 : (int)y0f;
-  const int x1 = min(x0 + 1, w - 1);
-  const int y1 = min(y0 + 1, h - 1);
-  const float2 v00 = __ldg(img + y0 * w + x0);
-  const float2 v01 = __ldg(img + y0 * w + x1);
-  const float2 v10 = __ldg(img + y1 * w + x0);
-  const float2 v11 = __ldg(img + y1 * w + x1);
-  const float gx = 1.0f - fx;
-  const float gy = 1.0f - fy;
-  const float top_x = v00.x * gx + v01.x * fx;
-  const float top_y = v00.y * gx + v01.y * fx;
-  const float bot_x = v10.x * gx + v11.x * fx;
-  const float bot_y = v10.y * gx + v11.y * fx;
-  return make_float2(top_x * gy + bot_x * fy, top_y * gy + bot_y * fy);
 }
 
 struct ChainInputs {

@@ -12,6 +12,12 @@ registry ``_get_batch_p4p`` :398 (LambdaTwist or AP3P), ``_pose_step_core``
 ``_cameras_window_jacobi_core`` :740 (batched sweep). The window sweep's
 ``lax.cond``/``fori_loop`` become host control flow. Random draws come from
 a ``torch.Generator`` through the ``draw_*`` helpers of each op.
+
+The sweeps collect through ``ops/pose_collect.py:pose_collect``: on the
+card one kernel launch a collect, on the CPU the plain
+``collect_p3p_instances`` / ``collect_p3p_instances_obs`` below.
+``collect_p3p_instances_all`` (``pose_collect_mode="traced"``) has no
+kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from voldor_tpu_torch.ops.chain_trace import _backproject, _pixel_grid, _transfo
 from voldor_tpu_torch.ops.image import bilinear_sample
 from voldor_tpu_torch.ops.meanshift import draw_meanshift_trials, meanshift
 from voldor_tpu_torch.ops.p3p import draw_p4p_indices
+from voldor_tpu_torch.ops.pose_collect import pose_collect
 from voldor_tpu_torch.ops.robust_gaussian import fit_robust_gaussian
 from voldor_tpu_torch.utils.profiling import device_sync, host_read
 from voldor_tpu_torch.vo.em import EmParams
@@ -335,13 +342,14 @@ def _pose_step_core(
     ts = poses6[:, 3:6]
     ckw = _collect_kw(hp)
     if collect_mode == "obs" and obs_track is not None:
-        p2all, p3all, vall = collect_p3p_instances_obs(
-            depth, obs_track, obs_tinb, rigidness, Rs, ts, active_idx + 1, p, **ckw
+        p2all, p3all, vall = pose_collect(
+            depth, rigidness, Rs, ts, active_idx + 1, p, obs_track=obs_track,
+            obs_tinb=obs_tinb, **ckw,
         )
         p2map, p3map, vmap_ = p2all[active_idx], p3all[active_idx], vall[active_idx]
     else:
-        p2map, p3map, vmap_ = collect_p3p_instances(
-            depth, flows, rigidness, Rs, ts, active_idx, p, **ckw
+        p2map, p3map, vmap_ = pose_collect(
+            depth, rigidness, Rs, ts, active_idx, p, flows=flows, **ckw
         )
     init = poses6[active_idx][None]
     pose6, covar, density, count, n_points, success = _solve_and_fuse(
@@ -430,8 +438,9 @@ def _cameras_window_jacobi_core(
     Rs = lie.so3_exp(poses6[:, :3])
     ts = poses6[:, 3:6]
     if collect_mode == "obs" and obs_track is not None:
-        p2, p3, valid = collect_p3p_instances_obs(
-            depth, obs_track, obs_tinb, rigidness, Rs, ts, n_flows, p, **_collect_kw(hp)
+        p2, p3, valid = pose_collect(
+            depth, rigidness, Rs, ts, n_flows, p, obs_track=obs_track, obs_tinb=obs_tinb,
+            **_collect_kw(hp),
         )
     else:
         p2, p3, valid = collect_p3p_instances_all(
