@@ -7,10 +7,20 @@ Huber loss with its scale sigma fitted jointly, Owen 2007), written here with
 the same array operations, by ``scipy.optimize.minimize(method="L-BFGS-B")``
 from (coef, sigma) = (0, 1) with sigma bounded below by 10 x float64 eps,
 ``maxiter`` 100 and ``gtol`` 1e-5. On the same inputs it returns the
-regressor's ``coef_``.
+regressor's ``coef_``, with the number of L-BFGS-B iterations it took.
+
+The fit runs every loaded OpenBLAS on one thread. L-BFGS-B's calls into
+scipy's OpenBLAS wake its whole thread pool, whose workers then spin for a
+while after each call; at one fit a window, in a VO loop bound by its host
+thread, they would keep most of the host's cores busy and make the fit
+several times slower than on one thread. The result does not change.
 """
 
 from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
 
 import numpy as np
 from scipy import optimize
@@ -81,11 +91,51 @@ def _rows(X, mask, n):
     return X[mask, :] if n else np.zeros(shape=(0, X.shape[1]))
 
 
-def huber_coef(src: np.ndarray, dst: np.ndarray) -> float:
+@functools.cache
+def _openblas_threads():
+    """(get, set) of the thread count of each OpenBLAS loaded in the process
+    (numpy and scipy each bundle one, under prefixed names); none where the
+    process map cannot be read or the BLAS is another."""
+    try:
+        with open("/proc/self/maps") as f:
+            paths = sorted({line.split()[-1] for line in f if "openblas" in line.rsplit("/", 1)[-1]})
+    except OSError:
+        return ()
+    found = []
+    for path in paths:
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            continue
+        for name in ("openblas", "scipy_openblas"):
+            for suffix in ("", "64_"):
+                get = getattr(lib, f"{name}_get_num_threads{suffix}", None)
+                put = getattr(lib, f"{name}_set_num_threads{suffix}", None)
+                if get is not None and put is not None:
+                    found.append((get, put))
+    return tuple(found)
+
+
+@contextlib.contextmanager
+def one_blas_thread():
+    """Every loaded OpenBLAS on one thread inside the block, as before after."""
+    pools = _openblas_threads()
+    before = [get() for get, _ in pools]
+    for _, put in pools:
+        put(1)
+    try:
+        yield
+    finally:
+        for (_, put), n in zip(pools, before):
+            put(n)
+
+
+def huber_fit(src: np.ndarray, dst: np.ndarray) -> tuple[float, int]:
     """The coefficient of dst ~ coef * src under the Huber loss
-    (HuberRegressor(fit_intercept=False).fit(src[:, None], dst).coef_[0]).
-    Raises RuntimeError when L-BFGS-B reports an abnormal stop (status 2),
-    where the regressor raises ValueError."""
+    (HuberRegressor(fit_intercept=False).fit(src[:, None], dst).coef_[0])
+    and the L-BFGS-B iterations of the fit. Raises RuntimeError when
+    L-BFGS-B reports an abnormal stop (status 2), where the regressor raises
+    ValueError."""
     X = np.asarray(src).reshape(-1, 1)
     if X.dtype not in (np.float32, np.float64):
         X = X.astype(np.float64)
@@ -97,11 +147,12 @@ def huber_coef(src: np.ndarray, dst: np.ndarray) -> float:
     params[-1] = 1.0
     bounds = np.tile([-np.inf, np.inf], (2, 1))
     bounds[-1][0] = np.finfo(np.float64).eps * 10
-    res = optimize.minimize(
-        _loss_and_grad, params, method="L-BFGS-B", jac=True,
-        args=(X, y, EPSILON, ALPHA, sample_weight),
-        options={"maxiter": MAX_ITER, "gtol": TOL}, bounds=bounds,
-    )
+    with one_blas_thread():
+        res = optimize.minimize(
+            _loss_and_grad, params, method="L-BFGS-B", jac=True,
+            args=(X, y, EPSILON, ALPHA, sample_weight),
+            options={"maxiter": MAX_ITER, "gtol": TOL}, bounds=bounds,
+        )
     if res.status == 2:
         raise RuntimeError(f"Huber scale fit failed: L-BFGS-B stopped with {res.message}")
-    return float(res.x[0])
+    return float(res.x[0]), int(res.nit)

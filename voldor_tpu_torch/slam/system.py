@@ -34,7 +34,7 @@ from voldor_tpu_torch.falign import api as falign_api
 from voldor_tpu_torch.ops.image import gaussian_blur
 from voldor_tpu_torch.pgo import api as pgo_api
 from voldor_tpu_torch.slam.frame import Edge, Frame
-from voldor_tpu_torch.slam.huber import draw_scale_subsample, huber_coef
+from voldor_tpu_torch.slam.huber import draw_scale_subsample, huber_fit
 from voldor_tpu_torch.slam.loop_closure import BowRetriever, load_vocabulary
 from voldor_tpu_torch.slam.rwlock import RWLock
 from voldor_tpu_torch.slam.slam_utils import (
@@ -834,9 +834,13 @@ class VOLDOR_SLAM:
                     # rescales them in place (this window's frame then keeps
                     # host maps; the covis gates are scale-invariant since
                     # the fit rescales depth and translations jointly)
-                    vo_ret["depth"] = handle.depth_host()
-                    vo_ret["depth_conf"] = handle.conf_host()
-                    self._mono_scaled_fit(vo_ret)
+                    with profiling.span("vo.scale_fit"):
+                        with profiling.span("vo.scale_copy"):
+                            vo_ret["depth"] = handle.depth_host()
+                            vo_ret["depth_conf"] = handle.conf_host()
+                        profiling.count("scale_fit_bytes",
+                                        vo_ret["depth"].nbytes + vo_ret["depth_conf"].nbytes)
+                        self._mono_scaled_fit(vo_ret)
 
                 Tc1c2 = T6_to_T44(vo_ret["poses"])
 
@@ -960,7 +964,9 @@ class VOLDOR_SLAM:
         disparity measurement (> 1e-6, as the JAX package masks holes), at
         most depth_scaling_max_pixels of them drawn by draw_scale_subsample;
         the scale 1 / coef, clipped to [0.1, 10], multiplies the window's
-        depth and translations (and their covariances)."""
+        depth and translations (and their covariances). Counts the pixels
+        given to the fit (``scale_fit_px``) and its L-BFGS-B iterations
+        (``scale_fit_iters``) in the tracer's record."""
         disp = self.disps[self.fid_cur]
         mask = (vo_ret["depth_conf"] > self.depth_scaling_conf_thresh) & (disp > 1e-6)
         src = self.basefocal / vo_ret["depth"][mask]
@@ -969,9 +975,12 @@ class VOLDOR_SLAM:
             idx = draw_scale_subsample(self.depth_scaling_rng, src.size,
                                        self.depth_scaling_max_pixels)
             src, dst = src[idx], dst[idx]
+        profiling.count("scale_fit_px", int(src.size))
         if src.size < 10:
             return
-        scale = float(np.clip(1.0 / huber_coef(src, dst), 0.1, 10))
+        coef, iters = huber_fit(src, dst)
+        profiling.count("scale_fit_iters", iters)
+        scale = float(np.clip(1.0 / coef, 0.1, 10))
         vo_ret["depth"] *= scale
         vo_ret["poses"][:, 3:6] *= scale
         vo_ret["poses_covar"][:, :, 3:6] *= scale
